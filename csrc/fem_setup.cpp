@@ -1,4 +1,4 @@
-// Native host-side setup + IO for the TPU FEM framework.
+// Native host-side setup + IO for the FEM framework.
 //
 // Plays the role of the reference's C++ host layer (deal.II DoFHandler
 // table construction and DataOut; reference L-14/L-18): building the

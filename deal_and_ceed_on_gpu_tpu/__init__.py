@@ -1,21 +1,22 @@
-"""deal_and_ceed_on_gpu_tpu — a TPU-native matrix-free high-order FEM framework.
+"""deal_and_ceed_on_gpu_tpu — a matrix-free high-order FEM framework in JAX.
 
 A from-scratch rebuild of the capabilities of the EuroHack19 project
 ``peterrum/deal-and-ceed-on-gpu`` (CEED bake-off problems BP1..BP6, the
 step-64 Helmholtz tutorial workload, and the fused-kernel preconditioned
-conjugate-gradient solver) designed for TPUs:
+conjugate-gradient solver), running on an NVIDIA GPU:
 
-- JAX/XLA for the compute graph, Pallas kernels for the hot operator apply,
-  ``jax.sharding`` + ``shard_map`` + XLA collectives for distribution.
+- JAX/XLA for the compute graph, a Pallas kernel through Triton for the
+  uniform-brick GLL operator apply (``ops/stencil.py``), ``jax.sharding``
+  + ``shard_map`` + XLA collectives for distribution.
 - Structured brick meshes use a fully dense, index-free, axis-separable
-  local<->global map (no atomics, no scatter; bitwise deterministic).
-- Polynomial degree / quadrature order are trace-time constants (the TPU
+  local<->global map (no atomics, no scatter).
+- Polynomial degree / quadrature order are trace-time constants (the JAX
   analog of the reference's C++ template parameters).
 
 Layer map (mirrors SURVEY.md section 1):
   L0  mesh/dof/geometry     -> mesh.py, basis.py, geometry.py
   L1  distributed vectors   -> parallel/ (sharded jax.Array + psum/ppermute)
-  L2  matrix-free kernels   -> ops/ (sum_factorization, local_global, pallas_*)
+  L2  matrix-free kernels   -> ops/ (sum_factorization, local_global, separable, stencil)
   L3  operators + solvers   -> models/, solvers/
   L4  drivers / benchmarks  -> drivers/ (bp5, step64), bench.py
 """
@@ -41,7 +42,6 @@ from .solvers.control import (
 )
 from .solvers.cg import solve_cg
 from .solvers.cg_merged import solve_cg_merged
-from .solvers.cg_fused import solve_cg_fused
 
 __version__ = "0.1.0"
 
@@ -62,7 +62,6 @@ __all__ = [
     "NoConvergence",
     "solve_cg",
     "solve_cg_merged",
-    "solve_cg_fused",
     "gauss_lobatto_points",
     "gauss_points",
 ]

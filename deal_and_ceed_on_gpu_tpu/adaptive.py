@@ -1,19 +1,20 @@
 """Adaptive (2:1-refined) meshes with hanging-node constraints.
 
-TPU-native equivalent of the reference's adaptive-mesh support: deal.II's
+Equivalent of the reference's adaptive-mesh support: deal.II's
 ``make_hanging_node_constraints`` (reference L-15) plus the device-side
 ``internal::resolve_hanging_nodes`` hooks in the collocation evaluator
 (``bp5/fe_evaluation_gl.h:150-151,167-168``, consumed via the per-cell
 ``constraint_mask`` from MatrixFree L-1). Where the CUDA code applies the
 interpolation in-place on each element's shared-memory values (and its
-transpose on the scatter side), the TPU formulation keeps the whole
+transpose on the scatter side), this formulation keeps the whole
 constraint application **global and dense-indexed**: one weighted gather
 fills hanging DoFs from their coarse-side masters before the cell loop
 (``distribute``), one weighted segment-sum accumulates hanging residuals
 back onto the masters after it (``condense`` — the transpose), and
 constrained rows act as identity. The effective operator is the standard
 ``C^T A C`` on the conforming subspace — identical algebra, no per-cell
-masks, no atomics, bitwise deterministic.
+masks. (The segment-sums run in a fixed order; a duplicate-index
+scatter-add on the GPU uses atomics, whose order may vary.)
 
 Scope: arbitrary-depth isotropic refinement of a uniform brick under a
 vertex 2:1 balance (enforced automatically, like p4est's balance step),
@@ -308,8 +309,8 @@ class AdaptiveSpace:
         self.node_coords = coords_arr
         self.elem_dof_map = jnp.asarray(dof_map.astype(np.int32))
         self._dof_map_np = dof_map
-        # presorted scatter-add plan: the raw duplicate-index .at[].add
-        # serializes on TPU (see ops.local_global.make_scatter_plan)
+        # presorted scatter-add plan, the alternative to the raw
+        # duplicate-index .at[].add (see ops.local_global.make_scatter_plan)
         self.scatter_plan = lg.make_scatter_plan(dof_map, self.n_dofs)
 
         # ---- hanging-node constraints (multi-level, chain-resolved) ----
@@ -401,7 +402,7 @@ class AdaptiveSpace:
         # store the constraint triplets sorted by ROW (distribute scatters
         # into rows) and keep a column-sort permutation for the transpose
         # (condense scatters into master columns) — both scatters then run
-        # with indices_are_sorted=True, the TPU-fast segment-sum form
+        # with indices_are_sorted=True (sorted segment-sums)
         order_r = np.argsort(hang_rows, kind="stable")
         hang_rows = hang_rows[order_r]
         hang_cols = hang_cols[order_r]
@@ -449,8 +450,8 @@ class AdaptiveSpace:
         if self.hang_rows.size == 0:
             return v
         if lg.scatter_mode() == "raw":
-            # current-libtpu fast path: skips the column-order permutation
-            # gather entirely (see local_global.make_scatter_plan)
+            # duplicate-index scatter-add: skips the column-order
+            # permutation gather (see local_global.make_scatter_plan)
             v = v.at[self.hang_cols].add(self.hang_w * v[self.hang_rows])
             return jnp.where(self.hanging_mask, jnp.zeros((), v.dtype), v)
         vals = (self.hang_w * v[self.hang_rows])[self._hang_col_order]
@@ -480,18 +481,11 @@ class AdaptivePoissonOperator:
         -> per-cell apply (per-cell diagonal Jacobians)
         -> scatter-add -> condense (transpose) -> identity on constrained
 
-    ``backend``: "xla" (sum-factorized einsum cell apply), "pallas" (the
-    fused :class:`~.ops.pallas_general.GeneralCellKernel` — the
-    heterogeneous active cells batch through one MXU kernel launch; the
-    hanging-node interpolation stays in the gather/scatter epilogue where
-    the reference folds it into its hot kernel,
-    ``bp5/fe_evaluation_gl.h:150-151``; "pallas_general" is an accepted
-    alias), or "auto" (pallas on TPU for f32/bf16 spaces, xla otherwise —
-    Mosaic kernels have no f64).
+    ``backend``: "xla" (sum-factorized einsum cell apply; "auto" is an
+    accepted alias).
     """
 
-    def __init__(self, space: AdaptiveSpace, backend: str = "auto",
-                 pallas_opts=None):
+    def __init__(self, space: AdaptiveSpace, backend: str = "auto"):
         self.space = space
         b = space.basis
         self.S = jnp.asarray(b.S, dtype=space.dtype)
@@ -505,26 +499,14 @@ class AdaptivePoissonOperator:
         self._md = md
         self._w3_np = w3
         self._cw_cache = None
-        if backend == "auto":
-            backend = (
-                "pallas"
-                if jax.default_backend() == "tpu"
-                and jnp.dtype(space.dtype) != jnp.float64
-                else "xla"
-            )
-        if backend not in ("xla", "pallas", "pallas_general"):
+        if backend not in ("xla", "auto"):
             raise ValueError(f"unknown adaptive backend {backend!r}")
-        self.backend = "xla" if backend == "xla" else "pallas"
-        self._pallas_opts = dict(pallas_opts or {})
-        self._kernel = None
+        self.backend = "xla"
 
     @property
     def _cw(self):
-        """XLA-path gradient coefficient tables (three ``[E, q, q, q]``
-        device arrays), built lazily: the pallas backend streams its own
-        padded copy through the kernel and never reads these — eager
-        construction would double the gradient-coefficient HBM on large
-        adaptive spaces (ADVICE r4)."""
+        """Gradient coefficient tables (three ``[E, q, q, q]`` device
+        arrays), built lazily on first use."""
         if self._cw_cache is None:
             # concrete arrays even when first touched inside a jit trace
             # (a traced constant cached here would leak the tracer)
@@ -538,34 +520,9 @@ class AdaptivePoissonOperator:
                 )
         return self._cw_cache
 
-    def _val_table(self):
-        """``("table", a_jxw[E, Q])`` for the kernel's value term, or
-        ``None`` (pure Poisson). Subclasses with a mass/value term
-        override."""
-        return None
-
-    def _get_kernel(self):
-        if self._kernel is None:
-            from .ops.pallas_general import GeneralCellKernel
-
-            s = self.space
-            w = np.asarray(s.basis.q_weights)
-            w3 = (w[:, None, None] * w[None, :, None] * w[None, None, :])
-            C = self._md[:, None, :] * w3.reshape(1, -1, 1)  # [E, Q, 3]
-            self._kernel = GeneralCellKernel(
-                s.basis, s.mesh.n_cells, s.dtype,
-                grad=("diag3", C), val=self._val_table(),
-                **self._pallas_opts,
-            )
-        return self._kernel
-
     def apply_cell_loop(self, u: jnp.ndarray) -> jnp.ndarray:
         s = self.space
         ul = lg.gather_indexed(u, s.elem_dof_map, s.degree)
-        if self.backend == "pallas":
-            k = self._get_kernel()
-            wl = k.apply_local(ul.reshape(k._E, k._N)).reshape(ul.shape)
-            return lg.scatter_indexed_sorted(wl, s.scatter_plan, s.n_dofs)
         _, grads = sf.evaluate(ul, self.S, self.D, (1, 2, 3), False, True, True)
         gx, gy, gz = grads
         cx, cy, cz = self._cw
@@ -595,9 +552,8 @@ class AdaptiveHelmholtzOperator(AdaptivePoissonOperator):
     active cell; with S == I the value term is one in-place FMA at the
     quadrature stage."""
 
-    def __init__(self, space: AdaptiveSpace, a=None, backend: str = "auto",
-                 pallas_opts=None):
-        super().__init__(space, backend=backend, pallas_opts=pallas_opts)
+    def __init__(self, space: AdaptiveSpace, a=None, backend: str = "auto"):
+        super().__init__(space, backend=backend)
         if a is None:
             from .models.helmholtz import default_coefficient
 
@@ -605,13 +561,7 @@ class AdaptiveHelmholtzOperator(AdaptivePoissonOperator):
         aq = np.asarray(a(_cell_qpoints(space)), dtype=np.float64)
         self._aq_jxw = jnp.asarray(aq, dtype=space.dtype) * self._jxw
 
-    def _val_table(self):
-        E = self.space.mesh.n_cells
-        return ("table", np.asarray(self._aq_jxw).reshape(E, -1))
-
     def apply_cell_loop(self, u: jnp.ndarray) -> jnp.ndarray:
-        if self.backend == "pallas":
-            return super().apply_cell_loop(u)
         s = self.space
         ul = lg.gather_indexed(u, s.elem_dof_map, s.degree)
         vals, grads = sf.evaluate(ul, self.S, self.D, (1, 2, 3), True, True, True)
@@ -667,7 +617,7 @@ def assemble_rhs_adaptive(space: AdaptiveSpace, f=1.0) -> jnp.ndarray:
 # --------------------------------------------------------------------- #
 # error estimation + marking: the AMR workflow (framework extra — the
 # reference relies on uniform sweeps; this is the deal.II step-6-style
-# solve -> estimate -> mark -> refine loop on the TPU formulation)
+# solve -> estimate -> mark -> refine loop)
 # --------------------------------------------------------------------- #
 def estimate_gradient_recovery(
     space: AdaptiveSpace, op: AdaptivePoissonOperator, u: jnp.ndarray
@@ -717,7 +667,7 @@ def mark_doerfler(eta: np.ndarray, theta: float = 0.5) -> np.ndarray:
     and then merges adjacent sorted values within ``1e-12 * max`` into tie
     classes reordered by cell index — grouping is boundary-free, so a
     value sitting within last-bit noise of a quantum edge cannot flip
-    classes the way round-to-bucket quantization could (ADVICE r3).
+    classes the way round-to-bucket quantization could.
 
     Non-finite indicators (diverged solves) sort FIRST and are marked
     alone: the diverged cell refines, nothing else cascades off the
@@ -791,8 +741,8 @@ def amr_loop(
     each step with :class:`~.solvers.AdaptiveMultigrid`-preconditioned CG
     (level-independent iteration counts) instead of plain merged CG;
     ``precond="mg-ir"`` runs mixed-precision iterative refinement (f32
-    adaptive-MG inner CG, f64 true residuals — the fast TPU configuration,
-    only meaningful with ``dtype=float64``).
+    adaptive-MG inner CG, f64 true residuals; only meaningful with
+    ``dtype=float64``).
     ``make_op(space) -> operator`` selects the PDE (default Poisson;
     pass :class:`AdaptiveHelmholtzOperator` for the step-64 problem)."""
     from .solvers import ReductionControl, solve_cg, solve_cg_merged

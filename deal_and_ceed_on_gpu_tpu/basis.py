@@ -1,6 +1,6 @@
 """1D finite-element bases and quadrature on the unit reference interval [0, 1].
 
-TPU-native equivalent of the reference's shape-value tables: the 1D
+Equivalent of the reference's shape-value tables: the 1D
 interpolation matrix ``S[q, p+1]`` and derivative matrix ``D[q, p+1]`` that
 feed the sum-factorization sweeps (reference: deal.II
 ``internal::EvaluatorTensorProduct`` as used by

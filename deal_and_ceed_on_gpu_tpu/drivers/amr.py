@@ -19,7 +19,7 @@ from ..utils.logging import rank0_print as pcout
 
 
 def main():
-    ap = argparse.ArgumentParser(description="adaptive refinement demo (TPU)")
+    ap = argparse.ArgumentParser(description="adaptive refinement demo")
     ap.add_argument("--base", type=int, default=4, help="base mesh cells/axis")
     ap.add_argument("--degree", type=int, default=2)
     ap.add_argument("--steps", type=int, default=3)

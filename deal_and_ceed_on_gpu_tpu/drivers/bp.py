@@ -12,7 +12,6 @@ import argparse
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from ..mesh import BrickMesh
 from ..models import assemble_rhs, make_bp_operator
@@ -56,31 +55,16 @@ def run_sweep(
             n_iterations, 1e-6 * float(jnp.linalg.norm(b))
         )
 
-        # pallas backends: whole solves run in the kernel-owned padded
-        # layout (zero padding is a CG invariant — see drivers/bp5.py)
-        scalar_backend = getattr(
-            op, "backend", getattr(getattr(op, "scalar_op", None), "backend", None)
-        )
-        if scalar_backend == "pallas":
-            b_solve = jax.block_until_ready(op.pad_flat(b) if n_comp > 1
-                                            else op.layout.pad_flat(b))
-            vm = op.vmult_padded
-            # donated bare-kernel applies inside the solve and the chain:
-            # the kernel tables encode M A M, every CG vector stays zero
-            # on the constrained set (b is), no strip/face epilogue
-            merged_kw = dict(A_donate=op.vmult_free)
-        else:
-            b_solve, vm = b, op.vmult
-            merged_kw = {}
+        vm = op.vmult
 
         if "pcg-merged" in modes:
-            f = jax.jit(lambda b: solve_cg_merged(vm, b, control, **merged_kw))
-            x, info = f(b_solve)
+            f = jax.jit(lambda b: solve_cg_merged(vm, b, control))
+            x, info = f(b)
             jax.block_until_ready(x)
             times, iters = [], []
             for _ in range(n_repetitions):
                 t = Timer().start()
-                x, info = f(b_solve)
+                x, info = f(b)
                 t.stop(fence=x)
                 times.append(t.elapsed)
                 iters.append(int(info["n_iterations"]))
@@ -89,31 +73,14 @@ def run_sweep(
             res["pcg-merged"] = tp
 
         if "vmult" in modes:
-            u = b_solve / jnp.linalg.norm(b_solve)
+            u = b / jnp.linalg.norm(b)
             v = jax.block_until_ready(vm(u))
             # fold the normalization into the tables: pure chained applies
             op.fold_scale(1.0 / max(float(jnp.linalg.norm(v)), 1.0))
 
-            if scalar_backend == "pallas":
-                # donated double-buffer bare-kernel chain (see bp5.py)
-                @jax.jit
-                def chain(u):
-                    def body(i, c):
-                        v, w = c
-                        return op.vmult_free(v, w), v
-
-                    v, _ = jax.lax.fori_loop(
-                        0, n_iterations, body, (u, jnp.zeros_like(u))
-                    )
-                    return v
-
-            else:
-
-                @jax.jit
-                def chain(u):
-                    return jax.lax.fori_loop(
-                        0, n_iterations, lambda i, v: vm(v), u
-                    )
+            @jax.jit
+            def chain(u):
+                return jax.lax.fori_loop(0, n_iterations, lambda i, v: vm(v), u)
 
             jax.block_until_ready(chain(u))
             best = 0.0
@@ -134,7 +101,7 @@ def main():
     from ..utils import enable_compilation_cache
 
     enable_compilation_cache()
-    ap = argparse.ArgumentParser(description="CEED BP sweep (TPU)")
+    ap = argparse.ArgumentParser(description="CEED BP sweep")
     ap.add_argument("--bp", default="bp5", choices=[f"bp{i}" for i in range(1, 7)])
     ap.add_argument("--p-min", type=int, default=1)
     ap.add_argument("--p-max", type=int, default=8)
@@ -145,9 +112,8 @@ def main():
     ap.add_argument(
         "--backend",
         default=None,
-        help="operator backend (default: the fast separable path); "
-        "pallas_general is the fused MXU kernel for the Gauss-rule BPs "
-        "(BP1/BP3, ~3x structured at p=5 q=p+2 — RESULTS.md)",
+        help="operator backend (default: the separable path; stencil for "
+        "the GLL stiffness BPs on the GPU)",
     )
     args = ap.parse_args()
     from ..utils import ensure_x64

@@ -49,24 +49,13 @@ class BP5Config:
     n_q: int | None = None
     modes: tuple = ("pcg-standard", "pcg-merged", "vmult")
     validate: bool = True
-    # MXU matmul precision for the chained-vmult BENCHMARK only; solve and
+    # matmul precision for the chained-vmult BENCHMARK only; solve and
     # validation modes always trace at "highest" (a process-global lowered
     # precision would silently degrade the CG accuracy and the L2 norm)
-    mxu_precision: str = "highest"
-    # tile tuning for backend="pallas"/"pallas_general" (None = defaults;
-    # the measured-fastest stencil config on v5e is
-    # dict(block_y=96, vmem_limit_bytes=100 << 20), see RESULTS.md)
-    pallas_opts: dict | None = None
-    # backend="pallas" only: stream the padded HBM vectors (and the
-    # kernel's DMA traffic) at this dtype while accumulating in f32
-    # ("bfloat16" halves the solver+kernel bytes — measured +8% vmult,
-    # +21% pcg-merged at cycle 33). Solutions are rounded to ~1e-3; full
-    # accuracy needs iterative refinement around it (solvers/ir.py).
-    stream_dtype: str | None = None
-    # explicit opt-in for running a float64 request on the XLA separable
-    # path when a Mosaic (f32/bf16-only) backend was asked for — without
-    # it the driver refuses loudly and points at pcg-ir (VERDICT r3 §4)
-    f64_fallback_ok: bool = False
+    matmul_precision: str = "highest"
+    # separable backend's 1D sweeps: "matmul" (dense contractions) or
+    # "stencil" (2p+1 shifted multiply-adds), see ops/separable.band_apply
+    sep_mode: str = "matmul"
 
 
 import contextlib
@@ -74,15 +63,15 @@ import contextlib
 
 @contextlib.contextmanager
 def _vmult_precision(cfg: "BP5Config"):
-    """Apply ``cfg.mxu_precision`` to trace-time matmul precision for the
+    """Apply ``cfg.matmul_precision`` to trace-time matmul precision for the
     chained-vmult benchmark ONLY, restoring "highest" afterwards so solve
     and validation traces in the same invocation are unaffected."""
     from ..ops.sum_factorization import set_matmul_precision
 
-    if cfg.mxu_precision == "highest":
+    if cfg.matmul_precision == "highest":
         yield
         return
-    set_matmul_precision(cfg.mxu_precision)
+    set_matmul_precision(cfg.matmul_precision)
     try:
         yield
     finally:
@@ -108,9 +97,7 @@ def estimate_lambda_max(op, n_dofs, iters=12, seed=0):
 
     def body(i, carry):
         u, lam = carry
-        # cast back to the probe dtype: bf16-streaming operators return
-        # narrow vectors, which would flip the fori_loop carry dtype
-        v = op.vmult(u).astype(u.dtype)
+        v = op.vmult(u)
         lam = jnp.linalg.norm(v)
         return v / lam, lam
 
@@ -122,205 +109,56 @@ def run_cycle(cycle: int, cfg: BP5Config):
     mesh = BrickMesh.bp5_cycle(cycle)
     dtype = jnp.dtype(cfg.dtype)
     space = FESpace.create(mesh, cfg.degree, n_q=cfg.n_q, rule=cfg.rule, dtype=dtype)
-    # backend="auto": the measured solver-selection guidance (RESULTS.md
-    # cycle/degree sweeps) as a driver policy — the fused stencil kernel
-    # saturates from ~6M points and wins decisively there; below that the
-    # XLA separable path leads in f32 (with bf16 streaming the kernel
-    # leads from ~4M, so the threshold drops).
     if cfg.backend == "auto":
-        if cfg.rule != "gauss_lobatto" or not mesh.is_uniform:
-            cfg = dataclasses.replace(cfg, backend="pallas_general")
-        else:
-            thresh = 4_000_000 if cfg.stream_dtype else 6_000_000
-            cfg = dataclasses.replace(
-                cfg,
-                backend=(
-                    "pallas"
-                    if mesh.n_dofs(cfg.degree) >= thresh
-                    else "separable"
-                ),
-            )
+        cfg = dataclasses.replace(cfg, backend=auto_backend(mesh, cfg.rule))
         pcout(f"   backend auto -> {cfg.backend}")
-    # Mosaic kernels are f32/bf16-only: with --dtype float64 the f64
-    # operator (pcg-standard/merged/vmult/validation) runs the separable
-    # Kronecker path; pcg-ir still builds its f32 inner operator on the
-    # requested pallas backend. Interpret mode (CPU tests) runs f64
-    # through the kernels directly and keeps the padded-layout path.
-    eff_backend = cfg.backend
-    if (
-        dtype == jnp.float64
-        and cfg.backend in ("pallas", "pallas_general")
-        and not (cfg.pallas_opts or {}).get("interpret")
-    ):
-        eff_backend = "separable"
-        # pcg-ir is the sanctioned f64 x kernel combination: the inner f32
-        # solves run on the requested Mosaic backend, and the f64 operator
-        # built here only serves outer residuals/validation
-        if not cfg.f64_fallback_ok and "pcg-ir" not in cfg.modes:
-            raise SystemExit(
-                f"--dtype float64 --backend {cfg.backend}: Mosaic TPU "
-                "kernels are f32/bf16-only (the reference runs native f64, "
-                "bp5/step-64.cu:206 — TPUs have no f64 ALUs). For "
-                "reference-grade 1e-10 accuracy WITH the fused kernel use "
-                "--modes pcg-ir (mixed-precision iterative refinement, "
-                "measured 5.7-50x faster than all-f64 — RESULTS.md), or "
-                "pass --f64-fallback to accept the XLA separable path for "
-                "the f64 operator."
-            )
-    op_kwargs = (
-        {"pallas_opts": cfg.pallas_opts}
-        if eff_backend in ("pallas", "pallas_general")
-        else {}
-    )
-    if eff_backend == "pallas" and cfg.pallas_opts is None:
-        # per-mesh padding-aware tile selection (the grid-rounded padding
-        # varies 1.4-2.7x with tile choice across the sweep shapes)
-        from ..ops.pallas_stencil import StencilLayout
-
-        op_kwargs["pallas_opts"] = StencilLayout.auto_opts(
-            mesh, cfg.degree, dtype
-        )
-    if eff_backend == "pallas" and cfg.stream_dtype:
-        op_kwargs["pallas_opts"] = dict(
-            op_kwargs.get("pallas_opts") or {}, stream_dtype=cfg.stream_dtype
-        )
-    op = PoissonOperator(space, backend=eff_backend, **op_kwargs)
+    op = PoissonOperator(space, backend=cfg.backend)
+    op.sep_mode = cfg.sep_mode
     pcout(f"Cycle {cycle}")
     pcout(f"   Number of active cells:       {mesh.n_cells}")
     pcout(f"   Number of degrees of freedom: {space.n_dofs}")
     pcout("")
 
-    b = assemble_rhs(space, 1.0, backend=eff_backend)
+    b = assemble_rhs(space, 1.0, backend=cfg.backend)
     b = jax.block_until_ready(b)
     norm_b = float(jnp.linalg.norm(b))
     control = IterationNumberControl(cfg.n_iterations, 1e-6 * norm_b)
-
-    if eff_backend == "pallas":
-        # whole solves run in the kernel-owned padded layout (zero padding
-        # is an invariant of the operator and of every CG update); vectors
-        # are padded once here and unpadded once for validation. diag=None
-        # is the reference's identity DiagonalMatrix without materializing
-        # a ones vector. active_spec() (skip dead z/y padding in the CG
-        # updates) is measured SLOWER on the dev chip — XLA materializes a
-        # copy per sliced dynamic-update-slice, eating the 1.5x traffic
-        # saving (scripts/exp_active_cg.py: 4.09 full vs 2.66 sliced
-        # GDoF/s) — so the full-vector updates stay the default here.
-        L = op.layout
-        b_solve = jax.block_until_ready(L.pad_flat(b))
-        vm = op.vmult_padded
-        # donated-buffer bare-kernel applies inside the merged solve: the
-        # kernel tables already encode M A M, every CG vector stays zero
-        # on the constrained set (b is), so the strip/face epilogue is
-        # unnecessary (measured 7.2 -> 11.5 GDoF/s at cycle 33 bf16)
-        merged_kw = dict(A_donate=op.vmult_free)
-        diag = None
-        active = None
-        mixed = L.stream_dtype != L.dtype
-        # bf16-streaming vectors: dots/recurrences must accumulate at the
-        # compute dtype (bf16 sums over 10^7 entries are meaningless), and
-        # the solution is upconverted once for validation
-        dot_dtype = space.dtype if mixed else None
-        if mixed:
-            unpack = lambda xp: L.unpad_flat(xp).astype(space.dtype)  # noqa: E731
-            if cfg.validate:
-                pcout(
-                    "   NOTE: stream_dtype solves round the solution to "
-                    "~1e-3 rel.; wrap in iterative refinement "
-                    "(solvers/ir.py) for full accuracy"
-                )
-        else:
-            unpack = L.unpad_flat
-    else:
-        b_solve, vm, diag = b, op.vmult, op.diagonal()
-        merged_kw = {}
-        active = None
-        dot_dtype = None
-        unpack = lambda x: x  # noqa: E731
+    vm, diag = op.vmult, op.diagonal()
 
     results = {}
     solution = None
 
     if "pcg-standard" in cfg.modes:
-        f = jax.jit(
-            lambda b: solve_cg(
-                vm, b, control, diag=diag, active=active, dot_dtype=dot_dtype
-            )
-        )
-        x, info = f(b_solve)  # warmup/compile
+        f = jax.jit(lambda b: solve_cg(vm, b, control, diag=diag))
+        x, info = f(b)  # warmup/compile
         jax.block_until_ready(x)
         times, iters = [], []
         for _ in range(cfg.n_repetitions):
             t = Timer().start()
-            x, info = f(b_solve)
+            x, info = f(b)
             t.stop(fence=(x, info["res_norm"]))
             times.append(t.elapsed)
             iters.append(int(info["n_iterations"]))
         results["pcg-standard"] = _throughput_lines(
             "pcg-standard", space.n_dofs, times, iters
         )
-        solution = unpack(x)
+        solution = x
 
     if "pcg-merged" in cfg.modes:
-        f = jax.jit(
-            lambda b: solve_cg_merged(
-                vm, b, control, diag=diag, active=active,
-                dot_dtype=dot_dtype, **merged_kw
-            )
-        )
-        x, info = f(b_solve)
+        f = jax.jit(lambda b: solve_cg_merged(vm, b, control, diag=diag))
+        x, info = f(b)
         jax.block_until_ready(x)
         times, iters = [], []
         for _ in range(cfg.n_repetitions):
             t = Timer().start()
-            x, info = f(b_solve)
+            x, info = f(b)
             t.stop(fence=(x, info["res_norm"]))
             times.append(t.elapsed)
             iters.append(int(info["n_iterations"]))
         results["pcg-merged"] = _throughput_lines(
             "pcg-merged", space.n_dofs, times, iters
         )
-        solution = unpack(x)
-
-    if "pcg-fused" in cfg.modes:
-        # the ENTIRE CG iteration — update_a + vmult + the dot products —
-        # in ONE Pallas pass (ops/pallas_cg.py, the TPU form of the
-        # reference's SolverCGFullMerge custom kernels bp5/solver.h:48-311).
-        # Wired as an explicit mode for measurement: on the v5e dev chip
-        # the donated XLA path (pcg-merged + A_donate) is FASTER (cycle 33:
-        # f32 5.4 vs 3.4, bf16 10.2 vs 5.1 GDoF/s — Pallas DMA streams at
-        # ~half XLA's rate here), so pcg-merged stays the default; see
-        # RESULTS.md "fully-fused CG iteration kernel".
-        if eff_backend != "pallas" or dtype != jnp.float32:
-            pcout(
-                "pcg-fused requires --backend pallas --dtype float32 — "
-                "skipping"
-            )
-        else:
-            from ..ops.pallas_cg import CGFusedStep
-            from ..solvers import solve_cg_fused
-
-            # the fused kernel carries FOUR sliding windows: it needs its
-            # own tile selection (stencil tiles overflow scoped VMEM) and
-            # an operator instance whose layout padding matches
-            fopts = CGFusedStep.auto_opts(
-                mesh, cfg.degree, dtype, stream_dtype=cfg.stream_dtype
-            )
-            fop = PoissonOperator(space, backend="pallas", pallas_opts=fopts)
-            bf = jax.block_until_ready(fop.layout.pad_flat(b))
-            f = jax.jit(lambda b: solve_cg_fused(fop, b, control))
-            x, info = f(bf)
-            jax.block_until_ready(x)
-            times, iters = [], []
-            for _ in range(cfg.n_repetitions):
-                t = Timer().start()
-                x, info = f(bf)
-                t.stop(fence=(x, info["res_norm"]))
-                times.append(t.elapsed)
-                iters.append(int(info["n_iterations"]))
-            results["pcg-fused"] = _throughput_lines(
-                "pcg-fused", space.n_dofs, times, iters
-            )
-            solution = fop.layout.unpad_flat(x).astype(space.dtype)
+        solution = x
 
     if "fdm-direct" in cfg.modes:
         # beyond the reference: the Kronecker fast-diagonalization DIRECT
@@ -348,11 +186,9 @@ def run_cycle(cycle: int, cfg: BP5Config):
 
     if "pcg-ir" in cfg.modes:
         # beyond the reference: mixed-precision iterative refinement to a
-        # TRUE f64 relative residual of 1e-10 (solvers/ir.py) — f32 (or
-        # bf16-streaming) merged-CG inner solves, f64 residuals. The
-        # reference never faces the tradeoff (native f64 GPUs); on TPU
-        # this is the production path to reference-grade accuracy.
-        # Requires --dtype float64 (the accumulation dtype).
+        # TRUE f64 relative residual of 1e-10 (solvers/ir.py) — f32
+        # merged-CG inner solves, f64 residuals. Requires --dtype float64
+        # (the accumulation dtype).
         if dtype != jnp.float64:
             pcout("pcg-ir requires --dtype float64 — skipping")
         else:
@@ -362,29 +198,13 @@ def run_cycle(cycle: int, cfg: BP5Config):
                 mesh, cfg.degree, n_q=cfg.n_q, rule=cfg.rule,
                 dtype=jnp.float32,
             )
-            kw32 = dict(op_kwargs)
-            if cfg.backend == "pallas":
-                from ..ops.pallas_stencil import StencilLayout
-
-                base_opts = (
-                    dict(cfg.pallas_opts)
-                    if cfg.pallas_opts
-                    else StencilLayout.auto_opts(mesh, cfg.degree, jnp.float32)
-                )
-                if cfg.stream_dtype:
-                    base_opts["stream_dtype"] = cfg.stream_dtype
-                kw32["pallas_opts"] = base_opts
-            op32 = PoissonOperator(space32, backend=cfg.backend, **kw32)
-            # f64 residual operator: the Mosaic kernel is f32-only, so the
-            # f64 apply uses the separable Kronecker path (eff_backend
-            # already fell back to it for pallas backends under f64)
-            op64 = op
-            x, info = solve_cg_ir(op32, op64, b, rtol=1e-10)
+            op32 = PoissonOperator(space32, backend=cfg.backend)
+            x, info = solve_cg_ir(op32, op, b, rtol=1e-10)
             jax.block_until_ready(x)
             times, its = [], []
             for _ in range(cfg.n_repetitions):
                 t = Timer().start()
-                x, info = solve_cg_ir(op32, op64, b, rtol=1e-10)
+                x, info = solve_cg_ir(op32, op, b, rtol=1e-10)
                 t.stop(fence=x)
                 times.append(t.elapsed)
                 its.append(int(info["n_inner"]))
@@ -423,40 +243,24 @@ def run_cycle(cycle: int, cfg: BP5Config):
         results["pcg-mg"] = _throughput_lines("pcg-mg", space.n_dofs, times, iters)
         solution = x
 
+    if solution is not None:
+        # the TRUE residual |b - A x| / |b| (an f32 CG recurrence can fall
+        # below what the iterate attains), before vmult rescales the op
+        res = float(jnp.linalg.norm(b - op.vmult(solution)) / norm_b)
+        pcout(f"   true relative residual: {res:.6e}")
+        results["true_rel_res"] = res
+
     if "vmult" in cfg.modes:
         # fold the 1/lambda_est normalization into the operator tables so
         # the chain is pure back-to-back applies (no extra elementwise pass)
         lam = estimate_lambda_max(op, space.n_dofs)
         op.fold_scale(1.0 / lam)
 
-        if eff_backend == "pallas":
-            # bare-kernel donated double-buffer chain: u0 is zero on the
-            # constrained set and on the dead strips, both are fixed
-            # points of M A M, so the epilogue is unnecessary (same
-            # invariant as the merged solve's A_donate path)
-            @jax.jit
-            def chain(u):
-                def body(i, c):
-                    v, w = c
-                    return op.vmult_free(v, w), v
+        @jax.jit
+        def chain(u):
+            return jax.lax.fori_loop(0, cfg.n_iterations, lambda i, v: vm(v), u)
 
-                v, _ = jax.lax.fori_loop(
-                    0, cfg.n_iterations, body, (u, jnp.zeros_like(u))
-                )
-                return v
-
-        else:
-
-            @jax.jit
-            def chain(u):
-                return jax.lax.fori_loop(
-                    0, cfg.n_iterations, lambda i, v: vm(v), u
-                )
-
-        # normalize at the compute dtype (a bf16 12M-entry norm is junk),
-        # then cast back so the chain carry keeps the streaming dtype
-        nrm = jnp.linalg.norm(b_solve.astype(space.dtype))
-        u0 = (b_solve.astype(space.dtype) / nrm).astype(b_solve.dtype)
+        u0 = b / norm_b
         with _vmult_precision(cfg):
             jax.block_until_ready(chain(u0))  # traced under the bench precision
         times = []
@@ -477,15 +281,33 @@ def run_cycle(cycle: int, cfg: BP5Config):
         pcout(f"   solution L2 norm: {norm:.12g}")
         results["l2_norm"] = norm
         pcout("")
+    results["solution"] = solution
 
     return results
+
+
+_ARRAYS = ("solution",)
+
+
+def auto_backend(mesh, rule: str) -> str:
+    """``--backend auto``: the one-pass stencil kernel for GLL collocation
+    on a (uniform or graded) brick when a GPU runs it, the XLA separable
+    path for other rules on a brick (and for GLL without a GPU), the
+    structured cell loop on mapped meshes."""
+    if mesh.is_mapped:
+        return "structured"
+    if rule == "gauss_lobatto" and jax.default_backend() == "gpu":
+        return "stencil"
+    return "separable"
 
 
 def run(cycle_min=7, cycle_max=40, cfg: BP5Config | None = None):
     cfg = cfg or BP5Config()
     out = {}
     for cycle in range(cycle_min, cycle_max + 1):
-        out[cycle] = run_cycle(cycle, cfg)
+        res = run_cycle(cycle, cfg)
+        # keep the numbers only: device arrays of every cycle would pile up
+        out[cycle] = {k: v for k, v in res.items() if k not in _ARRAYS}
     return out
 
 
@@ -520,14 +342,7 @@ def run_cycle_distributed(
     dtype = jnp.dtype(cfg.dtype)
     space = FESpace.create(mesh, cfg.degree, rule=cfg.rule, dtype=dtype)
     part = BlockPartition(mesh, cfg.degree, pz=pz, py=py, px=px)
-    dist_kwargs = (
-        {"pallas_opts": cfg.pallas_opts}
-        if cfg.backend == "pallas_general" and cfg.pallas_opts
-        else {}
-    )
-    dist_op = DistOperator(
-        part, PoissonOperator, dtype=dtype, backend=cfg.backend, **dist_kwargs
-    )
+    dist_op = DistOperator(part, PoissonOperator, dtype=dtype, backend=cfg.backend)
     pcout(f"Cycle {cycle} on {pz}x{py}x{px} shards")
     pcout(f"   Number of active cells:       {mesh.n_cells}")
     pcout(f"   Number of degrees of freedom: {space.n_dofs}")
@@ -571,6 +386,9 @@ def run_cycle_distributed(
             "pcg-merged", space.n_dofs, times, iters, n_ranks=n_shards
         )
         results["n_iterations"] = iters[-1]
+        # the sharded [pz*py*px blocks] solution and its partition
+        results["solution"] = x
+        results["partition"] = part
         if write_solution:
             # per-shard .vtr pieces + .pvtr master (the reference's
             # per-rank VTU + PVTU record, step-64/step-64.cu:560-588)
@@ -642,7 +460,7 @@ def main():
     from ..utils import enable_compilation_cache
 
     enable_compilation_cache()
-    ap = argparse.ArgumentParser(description="BP5 benchmark (TPU)")
+    ap = argparse.ArgumentParser(description="BP5 benchmark")
     ap.add_argument("--cycle-min", type=int, default=7)
     ap.add_argument("--cycle-max", type=int, default=40)
     ap.add_argument("--degree", type=int, default=5)
@@ -652,10 +470,9 @@ def main():
     ap.add_argument(
         "--backend",
         default="structured",
-        help="structured | gather | separable | pallas | pallas_general | "
-        "auto (auto picks per cycle from the measured guidance: pallas "
-        "from ~6M DoFs f32 / ~4M with --stream-dtype, separable below, "
-        "pallas_general for Gauss rules and mapped meshes)",
+        help="structured | gather | separable | stencil | auto (auto: "
+        "stencil for GLL on a brick on the GPU, separable for other rules "
+        "on a brick, structured on mapped meshes)",
     )
     ap.add_argument("--modes", default="pcg-standard,pcg-merged,vmult")
     ap.add_argument(
@@ -671,27 +488,12 @@ def main():
         ".vtr pieces + a .pvtr master to this path",
     )
     ap.add_argument(
-        "--stream-dtype",
-        default=None,
-        choices=["bfloat16"],
-        help="backend=pallas only: stream the padded HBM vectors at this "
-        "dtype (f32 accumulate in VMEM) — halves the solver+kernel bytes; "
-        "solutions are rounded to ~1e-3 (use solvers/ir.py for full "
-        "accuracy)",
-    )
-    ap.add_argument(
-        "--mxu-precision",
+        "--matmul-precision",
         default="highest",
         choices=["highest", "high", "default"],
-        help="MXU matmul precision for f32 paths (highest=bf16x6 exact, "
-        "high=bf16x3 ~2.6e-6 rel.err, default=bf16 ~8e-4 — benchmark-only)",
-    )
-    ap.add_argument(
-        "--f64-fallback",
-        action="store_true",
-        help="with --dtype float64 and a Mosaic backend (f32/bf16-only): "
-        "accept the XLA separable path for the f64 operator instead of "
-        "erroring (pcg-ir is the recommended f64-accuracy mode)",
+        help="f32 matmul precision of the chained-vmult benchmark only "
+        "(highest = full f32 products; high and default let XLA use TF32 "
+        "on the GPU, ~1e-3 relative error per product)",
     )
     args = ap.parse_args()
     from ..utils import ensure_x64
@@ -704,34 +506,8 @@ def main():
         dtype=args.dtype,
         backend=args.backend,
         modes=tuple(args.modes.split(",")),
-        mxu_precision=args.mxu_precision,
-        stream_dtype=args.stream_dtype,
-        f64_fallback_ok=args.f64_fallback,
-        # stencil tiles are auto-selected per mesh (StencilLayout
-        # .auto_opts) when pallas_opts is None; the general kernel fixes
-        # its MXU precision at construction, so the --mxu-precision flag
-        # must be forwarded here (set_matmul_precision only reaches the
-        # XLA sum-factorization sweeps)
-        pallas_opts=(
-            dict(precision=args.mxu_precision)
-            if args.backend == "pallas_general"
-            else None
-        ),
+        matmul_precision=args.matmul_precision,
     )
-    if (
-        args.backend == "pallas_general"
-        and args.mxu_precision != "highest"
-        and set(cfg.modes) - {"vmult"}
-    ):
-        pcout(
-            "WARNING: the pallas_general kernel fixes MXU precision at "
-            "construction — with --mxu-precision "
-            f"{args.mxu_precision!r} the pcg solves/validation in this "
-            "invocation also run at reduced precision (unlike the XLA "
-            "backends, where it is scoped to the vmult benchmark)"
-        )
-    if args.stream_dtype and args.backend not in ("pallas", "auto"):
-        pcout("WARNING: --stream-dtype only applies to backend=pallas (ignored)")
     parts = [int(s) for s in args.shards.split("x")]
     pz, py, px = (parts + [1, 1])[:3]
     if pz * py * px > 1:

@@ -36,15 +36,10 @@ def run(
     max_steps: int = 2000,
     vtu_path: str | None = None,
     precond: str = "none",
-    pallas_opts: dict | None = None,
 ):
     mesh = BrickMesh.hyper_cube().refine_global(n_refine)
     space = FESpace.create(mesh, degree, rule="gauss", dtype=jnp.dtype(dtype))
-    op = (
-        HelmholtzOperator(space, backend=backend, pallas_opts=pallas_opts)
-        if pallas_opts is not None
-        else HelmholtzOperator(space, backend=backend)
-    )
+    op = HelmholtzOperator(space, backend=backend)
     pcout(f"   Number of active cells: {mesh.n_cells}")
     pcout(f"   Number of degrees of freedom: {space.n_dofs}")
 
@@ -96,7 +91,7 @@ def main():
     from ..utils import enable_compilation_cache
 
     enable_compilation_cache()
-    ap = argparse.ArgumentParser(description="step-64 Helmholtz (TPU)")
+    ap = argparse.ArgumentParser(description="step-64 Helmholtz")
     ap.add_argument("--refine", type=int, default=3)
     ap.add_argument("--degree", type=int, default=3)
     ap.add_argument("--dtype", default="float64")

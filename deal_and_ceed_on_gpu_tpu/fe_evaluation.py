@@ -1,4 +1,4 @@
-"""FEEvaluation: the element-evaluator API, TPU style.
+"""FEEvaluation: the element-evaluator API, batched over cells.
 
 Functional counterpart of ``CUDAWrappers::FEEvaluation`` and the in-repo
 ``FEEvaluationGL`` (``bp5/fe_evaluation_gl.h:26-393``, component C6): the
@@ -8,8 +8,8 @@ same seven-step per-cell protocol —
         -> submit_value/submit_gradient (x JxW / J^{-1})
         -> integrate -> distribute_local_to_global
 
-— but batched over ALL cells at once (a TPU has no per-cell thread blocks;
-the batch dimension is what fills the vector units), and pure-functional:
+— but batched over ALL cells at once (XLA fills the device from the batch
+dimension instead of one thread block per cell), and pure-functional:
 each step returns new arrays instead of mutating shared memory.
 
 This is a convenience/parity layer: the production operators in ``models/``
@@ -144,7 +144,8 @@ class FEEvaluation:
         return sf.integrate(vals, grads, s.S, s.D, self._h.axes, s.basis.collocation)
 
     def distribute_local_to_global(self, v_local: jnp.ndarray) -> jnp.ndarray:
-        """Scatter-add element-local -> global. Deterministic (dense
-        overlap-add / segment-sum) — the TPU answer to the reference's
-        atomicAdd-vs-coloring choice (``bp5/fe_evaluation_gl.h:162-181``)."""
+        """Scatter-add element-local -> global: dense overlap-add on the
+        structured backend, ``.at[].add`` on the gather backend — the
+        counterpart of the reference's atomicAdd-vs-coloring choice
+        (``bp5/fe_evaluation_gl.h:162-181``)."""
         return self._h.scatter(v_local)

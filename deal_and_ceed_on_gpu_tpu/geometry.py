@@ -1,6 +1,6 @@
 """Element geometry: Jacobians, JxW, and merged diffusion coefficients.
 
-TPU-native equivalent of the reference's geometry tables
+Equivalent of the reference's geometry tables
 (``MappingQGeneric`` -> per-qpoint ``inv_jacobian``/``JxW`` consumed at
 ``bp5/step-64.cu:90-113``) and of the ``JacobianFunctor`` coefficient
 precompute (``bp5/step-64.cu:60-114``): the merged symmetric tensor

@@ -1,6 +1,6 @@
 """Structured brick meshes with lexicographic continuous Q_p DoF numbering.
 
-TPU-native replacement for the reference's L0 layer
+Replacement for the reference's L0 layer
 (``parallel::distributed::Triangulation`` + p4est + ``DoFHandler``/``FE_Q`` +
 ``AffineConstraints``; call sites ``bp5/step-64.cu:310-358,660-663``):
 on a structured brick every map the GPU code stores as per-cell index tables

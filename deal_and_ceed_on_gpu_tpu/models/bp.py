@@ -68,22 +68,10 @@ def make_bp_operator(
         mesh, degree, n_q=degree + 1 + spec.n_q_offset, rule=spec.rule, dtype=dtype
     )
     backend = backend or "separable"
-    kwargs = {}
-    if backend == "pallas":
-        # padding-aware tile selection for the z-streaming kernels
-        # (collocated stencil for BP5/6, banded Kronecker for BP1-4)
-        if spec.rule == "gauss_lobatto" and spec.kind == "stiffness":
-            from ..ops.pallas_stencil import StencilLayout
-
-            kwargs["pallas_opts"] = StencilLayout.auto_opts(mesh, degree, dtype)
-        else:
-            from ..ops.pallas_banded import BandedLayout
-
-            kwargs["pallas_opts"] = BandedLayout.auto_opts(mesh, degree, dtype)
     if spec.kind == "mass":
-        op = MassOperator(space, backend=backend, **kwargs)
+        op = MassOperator(space, backend=backend)
     else:
-        op = PoissonOperator(space, backend=backend, **kwargs)
+        op = PoissonOperator(space, backend=backend)
     if spec.n_components > 1:
         return space, VectorOperator(op, spec.n_components)
     return space, op

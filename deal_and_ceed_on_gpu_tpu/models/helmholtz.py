@@ -37,123 +37,16 @@ class HelmholtzOperator(MatrixFreeOperator):
         space: FESpace,
         backend: str = "structured",
         coefficient_fn: Callable[[np.ndarray], np.ndarray] = default_coefficient,
-        pallas_opts: dict | None = None,
     ):
-        if backend == "pallas":
-            # fused stencil kernel + the collocated value term as one
-            # extra FMA against a streamed a(x) node-table tile (GLL
-            # collocation: quadrature points ARE the nodes, so the
-            # assembled value diagonal is d3(i)*a(x_i) = S diag(a) S)
-            if not space.basis.collocation:
-                raise ValueError(
-                    "pallas Helmholtz requires GLL collocation (the value "
-                    "term is pointwise only when nodes = quadrature points)"
-                )
-            from ..ops.pallas_stencil import build_stencil_operator
-
-            super().__init__(space, "separable")
-            self.backend = "pallas"
-            nodes = space.basis.nodes
-            cx, cy, cz = space.mesh.node_coords_1d(space.degree, nodes)
-            nz, ny, nx = space.grid_shape
-            X = np.zeros((nz, ny, nx, 3))
-            X[..., 0] = cx[None, None, :]
-            X[..., 1] = cy[None, :, None]
-            X[..., 2] = cz[:, None, None]
-            # the kernel's S^2 is the UNIT-cell weight product (geometry
-            # lives in the band coefficients), so the physical value
-            # diagonal a*det*S^2 needs det = hx*hy*hz folded in here
-            hx, hy, hz = space.mesh.h
-            a_nodes = np.asarray(coefficient_fn(X), dtype=np.float64) * (
-                hx * hy * hz
-            )
-            self._stencil = build_stencil_operator(
-                space.mesh,
-                space.basis,
-                space.dtype,
-                value_coef=a_nodes,
-                **(pallas_opts or {}),
-            )
-            # qpoint-layout coefficient for compute_diagonal
-            self._a_q_raw = np.asarray(
-                coefficient_fn(space.geometry.q_points_phys()), dtype=np.float64
-            )
-            return
-        if backend == "pallas_qgrid":
-            # q-grid streaming kernel at the reference's NATIVE step-64
-            # configuration (Gauss rule, varying a(x), value+gradient),
-            # any brick geometry incl. mapped — no element-major layout
-            # (ops/pallas_qgrid.py; step-64/step-64.cu:153-219)
-            from ..ops.pallas_qgrid import build_qgrid_operator
-
-            super().__init__(space, backend)
-            self._dist_unsupported = (
-                "pallas_qgrid Helmholtz streams a position-dependent "
-                "a(x)*det value table inside the kernel; use "
-                "backend='structured' for the distributed operator"
-            )
-            geo = space.geometry
-            w3 = np.asarray(geo.w3d).reshape(-1)
-            xq = geo.q_points_phys()
-            a_q = np.asarray(coefficient_fn(xq), dtype=np.float64)
-            self._a_q_raw = a_q
-            if geo.uniform:
-                grad = ("const", geo.const_merged_diag)
-            elif not geo.mapped:
-                grad = (
-                    "diag3",
-                    geo.merged_coef_full()[:, :, (0, 3, 5)]
-                    / w3[None, :, None],
-                )
-            else:
-                grad = ("full6", geo.merged_coef_full() / w3[None, :, None])
-            self._qgrid = build_qgrid_operator(
-                space.mesh, space.basis, space.dtype, grad=grad,
-                val=("table", a_q * geo.det_q_full()),
-                **(pallas_opts or {}),
-            )
-            return
-        if backend == "pallas_general":
-            # fused general-quadrature kernel at the reference's native
-            # step-64 configuration (Gauss rule, value+gradient), any
-            # geometry: gradient planes as for Poisson plus the streamed
-            # a(x)*JxW value table
-            from ..ops.pallas_general import build_general_operator
-
-            super().__init__(space, backend)
-            # the a(x)*JxW value table is position-dependent on EVERY mesh
-            # and lives inside the kernel operator (not a sliceable named
-            # table), so this backend cannot ride the shard-table path
-            self._dist_unsupported = (
-                "pallas_general Helmholtz streams a position-dependent "
-                "a(x)*JxW value table inside the kernel; use "
-                "backend='structured' for the distributed operator"
-            )
-            geo = space.geometry
-            xq = geo.q_points_phys()
-            a_q = np.asarray(coefficient_fn(xq), dtype=np.float64)
-            self._a_q_raw = a_q
-            if geo.uniform:
-                grad = ("const", geo.const_merged_diag)
-            elif not geo.mapped:
-                grad = ("diag3", geo.merged_coef_full()[:, :, (0, 3, 5)])
-            else:
-                grad = ("full6", geo.merged_coef_full())
-            self._general = build_general_operator(
-                space,
-                grad=grad,
-                val=("table", a_q * geo.jxw_full()),
-                **(pallas_opts or {}),
-            )
-            return
-        if backend == "separable":
+        if backend in ("separable", "stencil"):
             # GLL collocation only: the varying-coefficient mass term is a
             # GLOBAL DIAGONAL (gather-diag-scatter over coinciding
             # node/quadrature points), so Helmholtz = Poisson Kronecker
             # terms + one diagonal term — the full fast path survives
+            # (the stencil kernel reads that diagonal as its value field)
             if not space.basis.collocation:
                 raise ValueError(
-                    "separable Helmholtz requires GLL collocation (the "
+                    f"{backend} Helmholtz requires GLL collocation (the "
                     "Gauss-rule mass term with varying a(x) is not separable)"
                 )
             from ..ops.separable import poisson_terms
@@ -162,7 +55,7 @@ class HelmholtzOperator(MatrixFreeOperator):
             # the assembled a(x)*JxW diagonal depends on the block's
             # physical position and cannot be sliced per shard
             self._dist_unsupported = (
-                "separable Helmholtz has a position-dependent global "
+                f"{backend} Helmholtz has a position-dependent global "
                 "diagonal; use backend='structured' for distribution"
             )
             geo = space.geometry
@@ -173,6 +66,13 @@ class HelmholtzOperator(MatrixFreeOperator):
             dvec = np.zeros(space.n_dofs)
             np.add.at(dvec, space.mesh.element_dof_map(space.degree).reshape(-1), ajxw)
             nz, ny, nx = space.grid_shape
+            if backend == "stencil":
+                from ..ops.stencil import StencilOperator
+
+                self._stencil = StencilOperator(
+                    space.mesh, space.basis, space.dtype, value_diag=dvec
+                )
+                return
             self._sep_terms = poisson_terms(space.mesh, space.basis, space.dtype) + [
                 {
                     "coef": 1.0,
@@ -203,41 +103,14 @@ class HelmholtzOperator(MatrixFreeOperator):
                 self.to_layout(geo.merged_coef_full()), dtype=space.dtype
             )
 
-    # ------------------- pallas (padded-layout) path ------------------- #
-    @property
-    def layout(self):
-        if self.backend == "pallas_qgrid":
-            return self._qgrid.layout
-        return self._stencil.layout
-
-    def vmult_padded(self, src: jnp.ndarray) -> jnp.ndarray:
-        from ..ops.pallas_stencil import constrained_vmult_padded
-
-        if self.backend == "pallas_qgrid":
-            return self._qgrid.constrained_call(src)
-        return constrained_vmult_padded(self._stencil, src)
-
     def vmult(self, src: jnp.ndarray) -> jnp.ndarray:
-        if self.backend in ("pallas", "pallas_qgrid"):
-            L = self.layout
-            if src.shape[0] == L.n:
-                return self.vmult_padded(src)
-            return L.unpad_flat(self.vmult_padded(L.pad_flat(src)))
+        if self.backend == "stencil":
+            return self._stencil(src)
         return super().vmult(src)
 
     def _apply_fold_scale(self, s: float) -> None:
-        if self.backend == "pallas_general":
-            self._general.fold_scale(s)
-            return
-        if self.backend == "pallas_qgrid":
-            self._qgrid.fold_scale(s)
-            return
-        if self.backend == "pallas":
-            L = self._stencil.layout
-            L.bz, L.by, L.bx = L.bz * s, L.by * s, L.bx * s
-            self._stencil._a = self._stencil._a * s
-            L.bz_np, L.by_np, L.bx_np = L.bz_np * s, L.by_np * s, L.bx_np * s
-            self._fused_cg_step = None
+        if self.backend == "stencil":
+            self._stencil.fold_scale(s)
             return
         if self.backend in ("structured", "gather"):
             self._coef_val = self._coef_val * s
@@ -263,7 +136,7 @@ class HelmholtzOperator(MatrixFreeOperator):
         position (reference ``VaryingCoefficientFunctor``,
         ``step-64/step-64.cu:69-118``); the gradient tables do too on
         graded/mapped meshes."""
-        if self.backend == "separable":
+        if self.backend in ("separable", "stencil"):
             return ()
         if self._coef_g is not None:
             return ("_coef_val", "_coef_g")

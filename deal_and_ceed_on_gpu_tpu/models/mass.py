@@ -20,90 +20,16 @@ class MassOperator(MatrixFreeOperator):
     needs_values = True
     needs_gradients = False
 
-    def __init__(self, space: FESpace, backend: str = "structured",
-                 pallas_opts: dict | None = None):
-        if backend == "pallas":
-            # fused banded-Kronecker kernel on the padded z-streaming
-            # layout (ops/pallas_banded.py, kind="mass") — the BP1/BP2
-            # fast path on (graded) bricks for any quadrature rule
-            from ..ops.pallas_banded import build_banded_operator
-
-            super().__init__(space, "separable")
-            self.backend = "pallas"
-            self._pallas_opts = dict(pallas_opts or {})
-            self._stencil = build_banded_operator(
-                space.mesh, space.basis, space.dtype, kind="mass",
-                **(pallas_opts or {})
-            )
-            return
+    def __init__(self, space: FESpace, backend: str = "structured"):
         super().__init__(space, backend)
-        geo = space.geometry
-        if backend == "pallas_qgrid":
-            # q-grid streaming mass: value-only term, any Gauss rule, any
-            # brick geometry incl. mapped (ops/pallas_qgrid.py)
-            from ..ops.pallas_qgrid import build_qgrid_operator
-
-            if geo.uniform:
-                val = ("const", geo.det_j)
-            else:
-                val = ("table", geo.det_q_full())
-            self._qgrid = build_qgrid_operator(
-                space.mesh, space.basis, space.dtype, val=val,
-                **(pallas_opts or {}),
-            )
-            return
         if backend == "separable":
             from ..ops.separable import mass_terms
 
             self._sep_terms = mass_terms(space.mesh, space.basis, space.dtype)
             return
-        if backend == "pallas_general":
-            from ..ops.pallas_general import build_general_operator
-
-            if geo.uniform:
-                val = ("const", geo.det_j)
-            else:
-                val = ("table", geo.jxw_full())
-            self._general = build_general_operator(
-                space, val=val, **(pallas_opts or {})
-            )
-            return
         self._jxw = jnp.asarray(self.jxw_layout(), dtype=space.dtype)
 
-    # ------------------- pallas (padded-layout) path ------------------- #
-    @property
-    def layout(self):
-        if self.backend == "pallas_qgrid":
-            return self._qgrid.layout
-        return self._stencil.layout
-
-    def vmult_padded(self, src: jnp.ndarray) -> jnp.ndarray:
-        """dst = M src on layout-padded flat vectors (see
-        :func:`..ops.pallas_stencil.constrained_vmult_padded`)."""
-        from ..ops.pallas_stencil import constrained_vmult_padded
-
-        if self.backend == "pallas_qgrid":
-            return self._qgrid.constrained_call(src)
-        return constrained_vmult_padded(self._stencil, src)
-
-    def vmult(self, src: jnp.ndarray) -> jnp.ndarray:
-        if self.backend in ("pallas", "pallas_qgrid"):
-            L = self.layout
-            if src.shape[0] == L.n:
-                return self.vmult_padded(src)
-            return L.unpad_flat(self.vmult_padded(L.pad_flat(src)))
-        return super().vmult(src)
-
     def _apply_fold_scale(self, s: float) -> None:
-        if self.backend == "pallas":
-            self._stencil.fold_scale(s)
-            return
-        if self.backend == "pallas_general":
-            self._general.fold_scale(s)
-            return
-        if self.backend == "pallas_qgrid":
-            self._qgrid.fold_scale(s)
-            return
         if self.backend == "separable":
             return super()._apply_fold_scale(s)
         self._jxw = self._jxw * s

@@ -32,86 +32,15 @@ class PoissonOperator(MatrixFreeOperator):
         space: FESpace,
         backend: str = "structured",
         coefficient: str = "merged_const",
-        pallas_opts: dict | None = None,
     ):
-        if backend == "pallas":
-            # fused z-streaming kernel with the kernel-owned padded layout;
-            # vectors are layout padded-flat. GLL collocation rides the
-            # 3-sweep stencil kernel (ops/pallas_stencil.py); any other
-            # Gauss rule on a (graded) brick rides the 7-sweep banded
-            # Kronecker kernel (ops/pallas_banded.py, the BP3/BP4 fast
-            # path). pallas_opts: block_z / block_y / vmem_limit_bytes
-            # tile tuning (measured sweeps in RESULTS.md).
-            super().__init__(space, "separable")
-            self.backend = "pallas"
+        if backend == "stencil":
+            # one-pass Triton kernel on the natural grid (ops/stencil.py):
+            # GLL collocation on a uniform or graded brick
+            from ..ops.stencil import StencilOperator
+
+            super().__init__(space, backend)
             self.coefficient = coefficient
-            self._pallas_opts = dict(pallas_opts or {})  # for VectorOperator
-            if space.basis.collocation:
-                from ..ops.pallas_stencil import build_stencil_operator
-
-                self._stencil = build_stencil_operator(
-                    space.mesh, space.basis, space.dtype, **(pallas_opts or {})
-                )
-            else:
-                from ..ops.pallas_banded import build_banded_operator
-
-                self._stencil = build_banded_operator(
-                    space.mesh, space.basis, space.dtype, kind="stiffness",
-                    **(pallas_opts or {})
-                )
-            return
-        if backend == "pallas_qgrid":
-            # q-grid streaming kernel (ops/pallas_qgrid.py): any Gauss
-            # rule, any brick geometry incl. mapped — node->quadrature
-            # grid streaming, no element-major layout; the fast path for
-            # mapped/varying-coefficient configurations (RESULTS.md
-            # "q-grid streaming kernel")
-            import numpy as np
-
-            from ..ops.pallas_qgrid import build_qgrid_operator
-
-            super().__init__(space, backend)
-            geo = space.geometry
-            w3 = np.asarray(geo.w3d).reshape(-1)
-            if geo.uniform:
-                self.coefficient = "merged_const"
-                grad = ("const", geo.const_merged_diag)
-            elif not geo.mapped:
-                self.coefficient = "merged_full"
-                grad = (
-                    "diag3",
-                    geo.merged_coef_full()[:, :, (0, 3, 5)]
-                    / w3[None, :, None],
-                )
-            else:
-                self.coefficient = "merged_full"
-                grad = ("full6", geo.merged_coef_full() / w3[None, :, None])
-            self._qgrid = build_qgrid_operator(
-                space.mesh, space.basis, space.dtype, grad=grad,
-                **(pallas_opts or {}),
-            )
-            return
-        if backend == "pallas_general":
-            # fused general-quadrature kernel: any rule (Gauss p+1/p+2,
-            # GLL), any geometry incl. mapped — the fast path for the
-            # reference's general configurations (BP1/BP3, step-64,
-            # MappingQGeneric meshes)
-            from ..ops.pallas_general import build_general_operator
-
-            super().__init__(space, backend)
-            geo = space.geometry
-            if geo.uniform:
-                self.coefficient = "merged_const"
-                grad = ("const", geo.const_merged_diag)
-            elif not geo.mapped:
-                self.coefficient = "merged_full"
-                grad = ("diag3", geo.merged_coef_full()[:, :, (0, 3, 5)])
-            else:
-                self.coefficient = "merged_full"
-                grad = ("full6", geo.merged_coef_full())
-            self._general = build_general_operator(
-                space, grad=grad, **(pallas_opts or {})
-            )
+            self._stencil = StencilOperator(space.mesh, space.basis, space.dtype)
             return
         super().__init__(space, backend)
         geo = space.geometry
@@ -135,56 +64,14 @@ class PoissonOperator(MatrixFreeOperator):
         else:
             raise ValueError(f"unknown coefficient mode {coefficient!r}")
 
-    # ------------------- pallas (padded-layout) path ------------------- #
-    @property
-    def layout(self):
-        if self.backend == "pallas_qgrid":
-            return self._qgrid.layout
-        return self._stencil.layout
-
-    def vmult_padded(self, src: jnp.ndarray) -> jnp.ndarray:
-        """dst = A src on layout-*padded* flat vectors (zero padding is an
-        invariant of the operator and of all CG updates, so entire solves
-        run in this layout); constraint handling costs only surface
-        traffic — see :func:`..ops.pallas_stencil.constrained_vmult_padded`
-        (measured: ~9% of the apply vs the old full-volume where() passes)."""
-        from ..ops.pallas_stencil import constrained_vmult_padded
-
-        if self.backend == "pallas_qgrid":
-            # fully in-kernel constrained apply (input-window masking +
-            # boundary-row identity select — ops/pallas_qgrid.py)
-            return self._qgrid.constrained_call(src)
-        return constrained_vmult_padded(self._stencil, src)
-
     def vmult(self, src: jnp.ndarray) -> jnp.ndarray:
-        if self.backend in ("pallas", "pallas_qgrid"):
-            L = self.layout
-            if src.shape[0] == L.n:
-                return self.vmult_padded(src)
-            return L.unpad_flat(self.vmult_padded(L.pad_flat(src)))
+        if self.backend == "stencil":
+            return self._stencil(src)
         return super().vmult(src)
 
     def _apply_fold_scale(self, s: float) -> None:
-        if self.backend == "pallas_general":
-            self._general.fold_scale(s)
-            return
-        if self.backend == "pallas_qgrid":
-            self._qgrid.fold_scale(s)
-            return
-        if self.backend == "pallas":
-            from ..ops.pallas_banded import build_banded_operator
-
-            if isinstance(self._stencil, build_banded_operator):
-                self._stencil.fold_scale(s)
-                return
-            # out = S (Bz + By + Bx) S u: scaling every band table by s
-            # scales the whole apply by s (identity faces unaffected)
-            L = self._stencil.layout
-            L.bz, L.by, L.bx = L.bz * s, L.by * s, L.bx * s
-            # host band copies feed the fused-CG folded tables; rebuild
-            # any already-built step from the rescaled copies
-            L.bz_np, L.by_np, L.bx_np = L.bz_np * s, L.by_np * s, L.bx_np * s
-            self._fused_cg_step = None
+        if self.backend == "stencil":
+            self._stencil.fold_scale(s)
             return
         if self.backend in ("structured", "gather"):
             if self.coefficient == "merged_const":

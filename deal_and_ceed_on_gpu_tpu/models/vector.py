@@ -2,7 +2,7 @@
 
 CEED's vector bake-off problems apply the same scalar bilinear form to
 ``dim`` independent solution components that *share all metric terms*
-(BASELINE.json configs). TPU-native form: unknowns are ``[3, n_dofs]``
+(BASELINE.json configs). Here unknowns are ``[3, n_dofs]``
 arrays and the scalar cell loop is ``vmap``-ed over the leading component
 axis — the shared coefficient tables are closure constants, so XLA reads
 them once per apply; component batching further widens every contraction.
@@ -29,120 +29,22 @@ class VectorOperator:
         self.scalar_op = scalar_op
         self.n_components = n_components
         self.space = scalar_op.space
-        self._stacked = None
-        st = getattr(scalar_op, "_stencil", None)
-        if getattr(scalar_op, "backend", None) == "pallas" and st is not None:
-            # every pallas scalar kernel has a component-in-z STACKED
-            # variant: one launch for all components, saturating the
-            # kernel at 1/n_components the per-component size.
-            #   GLL collocation (BP5/BP6, incl. the collocated Helmholtz
-            #   value term) -> StackedStencilOperator;
-            #   Gauss rules (BP1-BP4) -> StackedBandedOperator.
-            from ..ops.pallas_banded import (
-                StackedBandedOperator,
-                build_banded_operator,
-            )
-            from ..ops.pallas_stencil import StackedStencilOperator
-
-            space = scalar_op.space
-            opts = dict(getattr(scalar_op, "_pallas_opts", {}))
-            if isinstance(st, build_banded_operator):
-                self._stacked = StackedBandedOperator(
-                    space.mesh,
-                    space.basis,
-                    space.dtype,
-                    kind=st.kind,
-                    n_components=n_components,
-                    interpret=st.interpret,
-                    **opts,
-                )
-            elif space.basis.collocation:
-                self._stacked = StackedStencilOperator(
-                    space.mesh,
-                    space.basis,
-                    space.dtype,
-                    n_components=n_components,
-                    interpret=st.interpret,
-                    value_coef=getattr(st, "_value_coef_np", None),
-                    **opts,
-                )
 
     def vmult(self, src: jnp.ndarray) -> jnp.ndarray:
         assert src.shape[0] == self.n_components
-        if getattr(self.scalar_op, "backend", None) in (
-            "pallas",
-            "pallas_general",
-        ):
-            # Pallas kernels don't batch under vmap (manual-DMA grid
-            # schedules); 3 unrolled kernel calls cost the same HBM
-            # traffic and reuse the same tables — the BP4/6 "shared
-            # metric terms" property holds either way
+        if getattr(self.scalar_op, "backend", None) == "stencil":
+            # the kernel does not batch under vmap; three calls cost the
+            # same traffic and reuse the same tables
             return jnp.stack(
                 [self.scalar_op.vmult(src[c]) for c in range(self.n_components)]
             )
         return jax.vmap(self.scalar_op.vmult)(src)
-
-    # ------------------- pallas (padded-layout) path ------------------- #
-    @property
-    def layout(self):
-        return (
-            self._stacked.layout
-            if self._stacked is not None
-            else self.scalar_op.layout
-        )
-
-    def vmult_padded(self, src: jnp.ndarray) -> jnp.ndarray:
-        """Padded apply for whole vector solves in the stencil kernel's
-        layout (the CG solvers are shape-blind). With the stacked kernel
-        (gradient-only operators) ``src`` is the flat z-stacked vector
-        from :meth:`pad_flat` and ALL components ride one kernel launch;
-        otherwise ``[n_components, layout.n]`` with per-component calls."""
-        if self._stacked is not None:
-            return self._stacked.vmult_padded(src)
-        assert src.shape[0] == self.n_components
-        return jnp.stack(
-            [
-                self.scalar_op.vmult_padded(src[c])
-                for c in range(self.n_components)
-            ]
-        )
-
-    def vmult_free(self, src: jnp.ndarray, out_donate: jnp.ndarray):
-        """Donated-buffer bare-kernel apply (``M A M``, no epilogue) —
-        the solve-mode fast path (see ``solve_cg_merged``'s ``A_donate``).
-        One stacked launch when available, else per-component calls with
-        per-component donated slices."""
-        if self._stacked is not None:
-            return self._stacked.vmult_free(src, out_donate)
-        return jnp.stack(
-            [
-                self.scalar_op.vmult_free(src[c], out_donate[c])
-                for c in range(self.n_components)
-            ]
-        )
-
-    def pad_flat(self, u: jnp.ndarray) -> jnp.ndarray:
-        if self._stacked is not None:
-            return self._stacked.pad_flat(u)
-        L = self.layout
-        return jnp.stack([L.pad_flat(u[c]) for c in range(self.n_components)])
-
-    def unpad_flat(self, up: jnp.ndarray) -> jnp.ndarray:
-        if self._stacked is not None:
-            return self._stacked.unpad_flat(up)
-        L = self.layout
-        return jnp.stack(
-            [L.unpad_flat(up[c]) for c in range(self.n_components)]
-        )
 
     def __call__(self, src):
         return self.vmult(src)
 
     def fold_scale(self, s: float) -> None:
         self.scalar_op.fold_scale(s)
-        if self._stacked is not None:
-            # the stacked kernel owns private table copies
-            self._stacked.fold_scale(s)
 
     def diagonal(self) -> jnp.ndarray:
         d = self.scalar_op.diagonal()

@@ -1,9 +1,10 @@
 """Double-float (f32x2) extended-precision separable operator apply.
 
 The reference runs double precision end-to-end (``bp5/step-64.cu:206``).
-On TPU, f64 is software-emulated and Mosaic (the Pallas TPU compiler)
-rejects it outright, so the f64-grade *solve* path here has been
-mixed-precision iterative refinement (``solvers/ir.py``). This module
+This module was built for a device without fast f64, where the f64-grade
+*solve* path is mixed-precision iterative refinement (``solvers/ir.py``);
+whether it earns its place next to native f64 on the GPU is not measured
+yet. This module
 supplies the stronger guarantee for users who demand f64-grade individual
 **operator applies** (<= 1e-12 relative error), not just f64-grade solves:
 every value is carried as an unevaluated pair of f32s ``x = hi + lo``
@@ -15,13 +16,12 @@ with error-free transformations:
   XLA exposes none — and exact in round-to-nearest f32),
 - sums use Knuth's TwoSum with running compensation.
 
-Everything is plain elementwise f32 on the VPU, fused by XLA, so the HBM
+Everything is plain elementwise f32, so the device-memory
 traffic is exactly 2x the f32 path (two planes per vector) while the
 arithmetic stays native-f32 speed-of-light — no f64 emulation anywhere.
 Per-DoF work is the stencil path's 3*(2p+1) taps, each costing ~35 f32
-flops instead of 2; the path is compute-heavier but stays in the GDoF/s
-class where emulated f64 is not (measured: RESULTS.md "f32x2
-extended-precision applies").
+flops instead of 2; the path is compute-heavier (its GPU rate is not
+measured).
 
 Covers the separable forms: BP5/BP3 stiffness, BP1 mass, and the
 constant-coefficient Helmholtz (stiffness + c * mass) on uniform and
@@ -59,9 +59,10 @@ _SPLIT = np.float32(4097.0)
 # Error-free transformations are only correct if the compiler performs
 # the EXACT sequence of rounded operations written here. The HLO this
 # module emits is the exact sequence (optimization_barrier on every EFT
-# result pins it against HLO-level rewrites), and XLA:TPU's Mosaic/LLO
-# codegen preserves it (verified on chip: scripts/bench_f32x2.py asserts
-# the 1e-12 bar under jit before timing). XLA:CPU's default LLVM
+# result pins it against HLO-level rewrites). Backend codegen need not
+# preserve it: on the GPU, LLVM may contract a multiply and an add of an
+# EFT into one FMA, which silently breaks it (not verified either way).
+# XLA:CPU's default LLVM
 # pipeline, however, miscompiles large fused EFT chains (bit-verified
 # repro: a jnp.where feeding df_mul inside one kLoop fusion yields a hi
 # limb 2 ulps off while eager per-op dispatch of the same graph is
@@ -298,11 +299,8 @@ class DF32SeparableOperator:
         return self.vmult_df(src)
 
     def vmult(self, src) -> np.ndarray:
-        """Convenience f64 -> f64 apply (pack, df-apply, unpack). Jits on
-        TPU; dispatches eagerly on CPU (see the EFT codegen note above —
-        XLA:CPU's LLVM pipeline breaks compensated arithmetic inside
-        large fusions)."""
-        fn = self.vmult_df
-        if jax.default_backend() not in ("cpu",):
-            fn = jax.jit(fn)
-        return unpack_df(fn(pack_df(src)))
+        """Convenience f64 -> f64 apply (pack, df-apply, unpack),
+        dispatched eagerly on every backend (see the EFT codegen note
+        above: inside large fusions the backend's LLVM pipeline can break
+        compensated arithmetic)."""
+        return unpack_df(self.vmult_df(pack_df(src)))

@@ -2,9 +2,9 @@
 scatter-add (``distribute_local_to_global``).
 
 The reference resolves write conflicts in its scatter with CUDA
-``atomicAdd`` or graph coloring (``bp5/fe_evaluation_gl.h:162-181``). TPUs
-have no scatter atomics, so this module makes the central TPU-first design
-decision (SURVEY.md section 7 "hard parts"):
+``atomicAdd`` or graph coloring (``bp5/fe_evaluation_gl.h:162-181``). This
+module avoids the conflict altogether where the mesh allows it (SURVEY.md
+section 7 "hard parts"):
 
 **Structured backend (index-free).** On a lexicographic brick grid the
 local<->global map is axis-separable. Along one axis with ``m`` elements of
@@ -16,11 +16,11 @@ degree ``p`` (``n = m*p + 1`` global nodes), element ``e`` touches nodes
   element and add it onto the first-node column.
 
 Both are dense slices/concats — no gather indices, no scatter, no atomics,
-bitwise deterministic, and XLA-fusible. The 3D version applies this per axis,
+deterministic, and XLA-fusible. The 3D version applies this per axis,
 yielding the interleaved local layout ``[mz, p+1, my, p+1, mx, p+1]``.
 
 **Gather backend (general).** Explicit int32 ``local_to_global`` tables with
-``jnp.take`` and ``.at[].add`` segment-sum scatter — the path that also
+``jnp.take`` and ``.at[].add`` scatter (atomics on the GPU) — the path that also
 serves unstructured/adaptive meshes later (constraint masks slot in here).
 """
 
@@ -106,30 +106,25 @@ def gather_indexed(u: jnp.ndarray, elem_dof_map: jnp.ndarray, p: int) -> jnp.nda
 def scatter_indexed(
     v: jnp.ndarray, elem_dof_map: jnp.ndarray, n_dofs: int
 ) -> jnp.ndarray:
-    """``distribute_local_to_global``: deterministic segment-sum scatter-add
-    (XLA sorts/combines duplicate indices; no atomics)."""
+    """``distribute_local_to_global``: scatter-add of duplicate indices
+    (atomics on the GPU: summation order may vary between runs)."""
     flat_idx = elem_dof_map.reshape(-1)
     flat_val = v.reshape(-1)
     return jnp.zeros((n_dofs,), dtype=v.dtype).at[flat_idx].add(flat_val)
 
 
 def make_scatter_plan(elem_dof_map, n_dofs: int):
-    """Host-side sort plan for the duplicate-index scatter-add: on TPU the
-    raw ``.at[idx].add`` with millions of duplicate indices serializes
-    (measured minutes per apply at 4M DoFs — see ops/pallas_general.py);
-    gathering by a precomputed permutation (unique indices — fast) and
-    summing SORTED segments is the fast equivalent. Returns
-    ``(order, sorted_ids, flat_idx)`` int32 device arrays for
-    :func:`scatter_indexed_sorted`.
+    """Host-side sort plan for the duplicate-index scatter-add: gathering
+    by a precomputed permutation (unique indices) and summing SORTED
+    segments is the alternative to a raw ``.at[idx].add`` with millions of
+    duplicate indices. Returns ``(order, sorted_ids, flat_idx)`` int32
+    device arrays for :func:`scatter_indexed_sorted`.
 
-    PLATFORM DRIFT NOTE: which variant is faster depends on the libtpu
-    in the terminal. An earlier libtpu lowered duplicate-index
-    ``.at[].add`` catastrophically (measured minutes per apply at 4M
-    DoFs), making the sorted plan mandatory; the 2026-08 libtpu lowers
-    it FASTER than the plan (5.3 vs 10.7 ms at 621k values, 237 vs 369
-    ms at 21M — the plan pays an extra permutation gather). The default
-    follows the current measurement; set ``DLCG_SCATTER_MODE=sorted``
-    to force the plan path if the platform regresses."""
+    Which variant is faster on the GPU is not measured; the raw
+    ``.at[].add`` is the default and ``DLCG_SCATTER_MODE=sorted`` forces
+    the plan path. On the GPU the raw scatter-add uses atomics, so its
+    summation order (and the last bits of its result) can change from
+    run to run; the sorted plan sums in a fixed order."""
     import numpy as np
 
     flat = np.asarray(elem_dof_map).reshape(-1).astype(np.int32)
@@ -142,9 +137,8 @@ def make_scatter_plan(elem_dof_map, n_dofs: int):
 
 
 def scatter_mode() -> str:
-    """``raw`` (duplicate-index ``.at[].add``, current-libtpu fast path)
-    or ``sorted`` (permutation + sorted segment-sum) — see
-    :func:`make_scatter_plan`'s platform-drift note."""
+    """``raw`` (duplicate-index ``.at[].add``, the default) or ``sorted``
+    (permutation + sorted segment-sum) — see :func:`make_scatter_plan`."""
     import os
 
     return os.environ.get("DLCG_SCATTER_MODE", "raw")
@@ -152,9 +146,8 @@ def scatter_mode() -> str:
 
 def scatter_indexed_sorted(v: jnp.ndarray, plan, n_dofs: int) -> jnp.ndarray:
     """:func:`scatter_indexed` through a :func:`make_scatter_plan` — same
-    result up to summation order (each mode is deterministic: XLA
-    scatter-add and sorted segment-sum both combine duplicates in a
-    fixed order)."""
+    result up to summation order (only the sorted segment-sum fixes that
+    order on the GPU)."""
     import jax
 
     if len(plan) == 3 and scatter_mode() == "raw":

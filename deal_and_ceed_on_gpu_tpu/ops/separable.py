@@ -1,6 +1,6 @@
 """Separable (Kronecker) global operator apply — the uniform-mesh fast path.
 
-TPU-first reformulation of the cell loop: on a uniform brick mesh with a
+Global reformulation of the cell loop: on a uniform brick mesh with a
 constant (per-element) coefficient, gather -> sum-factorize -> scatter
 collapses *globally*. For each tensor direction, "scatter o (1D element
 matrix) o gather" along the same axis is a global banded 1D operator with
@@ -13,9 +13,10 @@ Hence (3D Poisson, reference BP5 configuration):
 with A1 = Z^T (D^T diag(w) D) Z banded (half-bandwidth p) and D diagonal.
 The apply is three 1D-operator sweeps plus one fused elementwise combine:
 **no gather, no scatter, no local-tensor inflation** — memory traffic drops
-to a few reads/writes of the nodal grid, and the sweeps run either on the
-MXU (dense 1D matrix contraction) or the VPU (2p+1 shifted fused
-multiply-adds). This replaces the reference's ``apply_kernel_shmem`` hot
+to a few reads/writes of the nodal grid, and the sweeps run either as
+dense 1D matrix contractions or as 2p+1 shifted fused multiply-adds.
+(``ops/stencil.py`` fuses the whole GLL apply into one Triton kernel.)
+This replaces the reference's ``apply_kernel_shmem`` hot
 kernel (``README.md:72``) for its entire benchmark suite, exactly
 reproducing the discrete operator (same quadrature) up to fp reordering.
 
@@ -80,9 +81,9 @@ def band_apply(
 ):
     """Apply a banded global 1D operator along ``axis``.
 
-    mode="matmul": one dense contraction on the MXU (wasteful in FLOPs for
-        large n1 but extremely fast and fully fused).
-    mode="stencil": 2p+1 shifted multiply-adds on the VPU using the band
+    mode="matmul": one dense contraction (wasteful in FLOPs for large n1;
+        the matmul runs at the sweep precision, HIGHEST by default).
+    mode="stencil": 2p+1 shifted multiply-adds using the band
         representation ``bands[2p+1, n1]`` (bands[p+k][i] = A[i, i+k]) —
         minimal FLOPs, traffic-bound.
     """

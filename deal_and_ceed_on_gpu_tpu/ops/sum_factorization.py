@@ -1,13 +1,12 @@
 """Sum-factorized tensor-product evaluation/integration sweeps.
 
-TPU-native equivalent of ``internal::EvaluatorTensorProduct``
+Equivalent of ``internal::EvaluatorTensorProduct``
 (``gradient_at_quad_pts`` / ``value_at_quad_pts`` / ``integrate_value`` /
 ``integrate_gradient``; used at ``bp5/fe_evaluation_gl.h:192-250``): each
 sweep contracts one local tensor axis of a batch of elements with a tiny
-1D basis matrix. On TPU the batching over elements (and the two passive
-local axes) makes every sweep one large matmul that XLA tiles onto the MXU —
-the CUDA one-thread-per-qpoint shared-memory scheme has no analog here and
-none is needed.
+1D basis matrix. Batching over elements (and the two passive local axes)
+makes every sweep one large matrix product that XLA hands to its GEMM
+emitters — no hand-written one-thread-per-qpoint shared-memory scheme.
 
 All functions are shape-polymorphic over leading batch axes: the three local
 (z, y, x) axes can sit anywhere, identified by an ``axes`` tuple, so the same
@@ -29,18 +28,17 @@ import jax.numpy as jnp
 
 __all__ = ["sweep", "evaluate", "integrate", "set_matmul_precision"]
 
-# Default HIGHEST — on TPU the default matmul precision is bfloat16, which
-# is far too coarse for FEM operator application (observed 4e-3 relative
-# error); HIGHEST selects the multi-pass f32-exact MXU mode (bf16x6).
-# Measured alternative on the dev chip (cycle 33, f32 separable vmult):
-# HIGH (bf16x3) is 16% faster at 2.6e-6 relative error, DEFAULT 36% faster
-# at 7.7e-4 — benchmark-only modes, selectable via set_matmul_precision /
-# the drivers' --mxu-precision flag. f64 is unaffected (no MXU emulation).
+# Default HIGHEST: full f32 products. On the GPU, XLA may run an f32
+# matrix product at a lower precision in TF32 (10-bit mantissa, ~1e-3
+# relative error per product), which is far too coarse for FEM operator
+# application. "high" and "default" are benchmark-only levels, selectable
+# via set_matmul_precision / the drivers' --matmul-precision flag. f64
+# products are unaffected.
 _MATMUL_PRECISION = jax.lax.Precision.HIGHEST
 
 
 def set_matmul_precision(precision: str | jax.lax.Precision) -> None:
-    """Set the MXU precision used by all subsequent sweep traces
+    """Set the matmul precision used by all subsequent sweep traces
     ("highest" | "high" | "default"). Takes effect at TRACE time — call
     before jitting operators, not between calls to an already-jitted one."""
     global _MATMUL_PRECISION

@@ -1,9 +1,9 @@
-"""Distributed adaptive (hanging-node) meshes over a TPU device mesh.
+"""Distributed adaptive (hanging-node) meshes over a device mesh.
 
 The reference gets distributed adaptivity from p4est + deal.II index sets
 (``parallel::distributed::Triangulation``, ``bp5/step-64.cu:310``;
 owned/relevant DoF sets ``:345-348``) with CUDA-aware-MPI point-to-point
-ghost exchange. The TPU formulation replaces the irregular ghost graph
+ghost exchange. This formulation replaces the irregular ghost graph
 with one dense **shared-surface buffer**:
 
 - DoFs are permuted by (z, y, x) node position and partitioned into
@@ -15,7 +15,7 @@ with one dense **shared-surface buffer**:
 - Let SIGMA be the set of DoFs referenced by any non-owner shard (cell
   gathers/scatters across the partition boundary plus remote hanging-node
   masters). Each apply exchanges SIGMA with ``psum`` of per-shard
-  scatters — the surface-sized, fixed-shape TPU analog of
+  scatters — the surface-sized, fixed-shape analog of
   ``update_ghost_values``/``compress(add)``; cell indices are remapped
   into the concatenated ``[owned | SIGMA | trash]`` space so every gather
   and scatter-add is one dense take / segment-sum.
@@ -186,8 +186,7 @@ class AdaptivePartition:
         )
         self.cell_map = jnp.asarray(cmap)
         self.cell_coef = coef  # numpy; dtype applied by the operator
-        # per-shard presorted scatter plans for the cell scatter-add (the
-        # raw duplicate-index .at[].add serializes on TPU — same fix as
+        # per-shard presorted scatter plans for the cell scatter-add (as
         # ops.local_global.make_scatter_plan, per shard)
         flat_c = cmap.reshape(n_shards, -1)
         order_c = np.argsort(flat_c, axis=1, kind="stable").astype(np.int32)

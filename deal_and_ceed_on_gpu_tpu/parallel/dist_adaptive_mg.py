@@ -119,7 +119,7 @@ class _Transfer:
         self.pick = jnp.asarray(pk)
 
         # presorted scatter plan for the coarse-side transfer scatter
-        # (restriction 2^T) — same TPU fix as the operator's cell scatter
+        # (restriction 2^T) — as for the operator's cell scatter
         flat_t = tc.reshape(n_sh, -1)
         order_t = np.argsort(flat_t, axis=1, kind="stable").astype(np.int32)
         self.tc_order = jnp.asarray(order_t)

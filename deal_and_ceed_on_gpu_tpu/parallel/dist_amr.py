@@ -96,8 +96,8 @@ def estimate_gradient_recovery_dist(
     (multiplicity counts and recovered-gradient sums both ride the
     operator's presorted segment-sum scatter plan), and reduces one
     ``eta_K^2`` scalar per owned cell. The host receives ``n_cells``
-    scalars — the global solution vector is never gathered (VERDICT r3
-    item 7; the reference's KellyErrorEstimator analog runs rank-local
+    scalars — the global solution vector is never gathered (the
+    reference's KellyErrorEstimator analog runs rank-local
     over ghosted vectors the same way).
 
     Owner-interior nodes accumulate in the exact order the host

@@ -1,13 +1,13 @@
-"""Distributed fast-diagonalization (FDM) solver: shard transposes over ICI.
+"""Distributed fast-diagonalization (FDM) solver: shard transposes.
 
 The single-device FDM (solvers/fdm.py) solves the separable BP5 system
 exactly with six dense 1D eigenvector sweeps + one diagonal scale. Under
 the (z, y) block decomposition the z/y sweeps are dense contractions
-ACROSS shards — the TPU-native answer is the classic distributed-spectral
+ACROSS shards — the answer is the classic distributed-spectral
 transpose: ``all_to_all`` the x axis against the partitioned axis so each
 shard holds FULL z (resp. y) for an x chunk, sweep locally, transpose
 back. Eight ``all_to_all``s per apply (4 forward, 4 inverse), each moving
-the field once over ICI — the same data-movement shape as a distributed
+the field once between devices — the same data-movement shape as a distributed
 3D FFT Poisson solver.
 
 Implementation notes:

@@ -89,22 +89,11 @@ class DistOperator:
         n_components: int = 1,
         **op_kwargs,
     ):
-        if backend not in ("separable", "structured", "gather", "pallas_general"):
+        if backend not in ("separable", "structured", "gather"):
             raise ValueError(
                 f"distributed backend {backend!r} unsupported: the per-shard "
                 "apply must be a plain cell loop (separable/structured/"
-                "gather/pallas_general); the fused stencil kernel owns its "
-                "own padded layout (parallel/dist_pallas.py)"
-            )
-        if backend == "pallas_general" and not part.mesh.is_uniform:
-            # the general kernel streams per-element coefficient tables in
-            # its own [K, E, Q] layout; per-shard slicing of those tables
-            # is not wired up — graded/mapped distributed runs take the
-            # structured backend's sliced global tables instead
-            raise ValueError(
-                "distributed pallas_general supports uniform global meshes "
-                "(const-coefficient path); use backend='structured' for "
-                "graded/mapped meshes"
+                "gather)"
             )
         self.part = part
         self.n_components = n_components
@@ -204,9 +193,9 @@ class DistOperator:
         restricted plane applies (one plane's work each), the halo
         ``ppermute``s are issued on those, and the full local apply — which
         does not depend on any received data — runs while they fly. XLA's
-        latency-hiding scheduler places the independent full apply between
-        ``collective-permute-start`` and ``-done`` (verified on an AOT
-        v5e:2x4 compile; see ARCHITECTURE.md). The reference engineers the
+        latency-hiding scheduler can place the independent full apply
+        between ``collective-permute-start`` and ``-done`` (not verified on
+        the GPU yet). The reference engineers the
         same overlap with split interior/boundary cell batches
         (``overlap_communication_computation``, ``bp5/step-64.cu:241``)."""
         from ..ops.separable import apply_separable, apply_separable_plane

@@ -3,7 +3,7 @@
 Composition of ``solvers.cg*`` with :class:`DistOperator`: each iteration
 is (local fused update) -> (local cell loop + plane ppermutes) -> (7 local
 dots + ONE stacked psum over both mesh axes). Scalar recurrences are
-computed redundantly on every device — the TPU equivalent of the
+computed redundantly on every device — the equivalent of the
 reference's "7-double allreduce then host scalar math"
 (``bp5/solver.h:488-533``), with no host in the loop at all.
 
@@ -44,19 +44,14 @@ def make_device_mesh(
     axis_x: str = "x",
 ) -> Mesh:
     """A ``pz x py`` 2D device mesh (1D z-slabs when ``py == 1``), or a
-    full 3D ``pz x py x px`` mesh when ``px > 1`` (one mesh axis per ICI
-    torus dimension on 3D-torus pods)."""
+    full 3D ``pz x py x px`` mesh when ``px > 1``, over the first devices
+    in ``jax.devices()`` order (on NVLink every card reaches every other
+    at the same rate, so the mesh shape follows the decomposition
+    alone)."""
     devs = np.asarray(jax.devices()[: pz * py * px])
     if px > 1:
         return Mesh(devs.reshape(pz, py, px), (axis_z, axis_y, axis_x))
     return Mesh(devs.reshape(pz, py), (axis_z, axis_y))
-
-
-def _vma_ok(dist_op: DistOperator) -> bool:
-    """shard_map's varying-mesh-axes check: on for the plain XLA backends,
-    off for pallas_general (``pallas_call`` outputs carry no vma
-    annotation — same exemption as parallel/dist_pallas.py)."""
-    return getattr(dist_op, "backend", None) != "pallas_general"
 
 
 def _axes(part) -> tuple:
@@ -133,7 +128,6 @@ def make_dist_solver(
                 mesh=mesh,
                 in_specs=(grid_spec, grid_spec) + _table_specs(dist_op),
                 out_specs=(grid_spec, P(), P(), P()),
-                check_vma=_vma_ok(dist_op),
             )
         )
 
@@ -148,7 +142,6 @@ def make_dist_solver(
                 mesh=mesh,
                 in_specs=(grid_spec,) + _table_specs(dist_op),
                 out_specs=(grid_spec, P(), P(), P()),
-                check_vma=_vma_ok(dist_op),
             )
         )
 
@@ -174,7 +167,6 @@ def make_dist_vmult(dist_op: DistOperator, mesh: Optional[Mesh] = None):
         mesh=mesh,
         in_specs=(grid_spec,) + _table_specs(dist_op),
         out_specs=grid_spec,
-        check_vma=_vma_ok(dist_op),
     )
     fn = jax.jit(lambda u: shmapped(u, *dist_op.shard_tables))
     dist_op._solver_cache[key] = fn

@@ -1,12 +1,12 @@
-"""Domain decomposition over a TPU device mesh.
+"""Domain decomposition over a device mesh.
 
-TPU-native replacement of the reference's L0 distribution stack (p4est
+Replacement of the reference's L0 distribution stack (p4est
 partitioning + owned/ghost DoF index sets + CUDA-aware-MPI transport;
 ``bp5/step-64.cu:310,345-348``, ``tests/cuda_aware_mpi.cc``): the element
 grid is block-partitioned along the z axis — and optionally the y axis —
 over a 2D ``jax.sharding.Mesh``. There are no index sets and no transport
 code: the ghost layer is the single shared nodal plane between neighboring
-blocks per partitioned axis, exchanged with a ``ppermute`` over ICI inside
+blocks per partitioned axis, exchanged with a ``ppermute`` inside
 ``shard_map``.
 
 Representation ("ghosted block"): every device holds
@@ -31,7 +31,7 @@ physical z/y extent. All nodal planes at or beyond the physical boundary
 plane are constrained (the physical boundary is Dirichlet anyway, so the
 padding extends the identity block): padded DoFs carry exact zeros through
 operator applies and CG updates, making the padded solve bit-identical to
-the unpadded one on the physical DoFs — the TPU answer to p4est's
+the unpadded one on the physical DoFs — the answer to p4est's
 arbitrary-rank-count partitioning (``bp5/step-64.cu:704-708``).
 """
 
@@ -51,9 +51,8 @@ __all__ = ["BlockPartition", "SlabPartition"]
 class BlockPartition:
     """(z, y[, x]) block decomposition of a :class:`BrickMesh` over a
     ``pz x py`` — or, with ``px > 1``, a full 3D ``pz x py x px`` — device
-    mesh (``py = px = 1`` gives classic z slabs). The 3D form maps
-    directly onto a v5p-style 3D ICI torus: one partitioned mesh axis per
-    torus dimension, every halo exchange a nearest-neighbor hop."""
+    mesh (``py = px = 1`` gives classic z slabs). Every halo exchange is
+    between neighbouring blocks along one mesh axis."""
 
     mesh: BrickMesh
     degree: int

@@ -6,7 +6,6 @@ from .control import (
 )
 from .cg import solve_cg
 from .cg_merged import solve_cg_merged
-from .cg_fused import solve_cg_fused
 from .fdm import FDMSolver
 from .ir import solve_cg_ir
 from .multigrid import Multigrid
@@ -21,7 +20,6 @@ __all__ = [
     "NoConvergence",
     "solve_cg",
     "solve_cg_merged",
-    "solve_cg_fused",
     "FDMSolver",
     "solve_cg_ir",
 ]

@@ -27,10 +27,8 @@ def solve_cg(
     control: SolverControl,
     diag: Optional[jnp.ndarray] = None,
     x0: Optional[jnp.ndarray] = None,
-    dot_dtype=None,
     dot_weight: Optional[jnp.ndarray] = None,
     psum_axis: Optional[str] = None,
-    active=None,
 ):
     """Solve A x = b with Jacobi-preconditioned CG.
 
@@ -48,24 +46,8 @@ def solve_cg(
 
     Distributed use (inside ``shard_map``): pass ``dot_weight`` to zero out
     ghost-duplicated entries and ``psum_axis`` to all-reduce the scalars over
-    the device mesh axis (the ``MPI_Allreduce`` equivalent).
-
-    ``active``: optional ``(shape3, slices)`` restricting the elementwise
-    updates and dots to the real sub-box of a kernel-owned padded layout
-    (see ``solve_cg_merged``); requires a vector ``diag`` (or None), not a
-    callable preconditioner."""
-    return dispatch(
-        _solve_cg,
-        A,
-        b,
-        control,
-        diag,
-        x0,
-        dot_dtype,
-        dot_weight,
-        psum_axis,
-        active,
-    )
+    the device mesh axis (the ``MPI_Allreduce`` equivalent)."""
+    return dispatch(_solve_cg, A, b, control, diag, x0, dot_weight, psum_axis)
 
 
 def _solve_cg(
@@ -74,39 +56,20 @@ def _solve_cg(
     control,
     diag=None,
     x0=None,
-    dot_dtype=None,
     dot_weight=None,
     psum_axis=None,
-    active=None,
 ):
     dt = b.dtype
-    dd = dot_dtype or dt
-
-    if active is None:
-        rd = lambda v: v  # noqa: E731
-
-        def wr(v, new):
-            return new
-
-    else:
-        assert not callable(diag), "active-region CG needs a vector diag"
-        shape3, sl = active
-
-        def rd(v):
-            return v.reshape(shape3)[sl]
-
-        def wr(v, new):
-            return v.reshape(shape3).at[sl].set(new).reshape(v.shape)
 
     def dot(u, v):
-        uv = u * v if dot_weight is None else u * v * rd(dot_weight)
-        s = jnp.sum(uv.astype(dd))
+        uv = u * v if dot_weight is None else u * v * dot_weight
+        s = jnp.sum(uv)
         return jax.lax.psum(s, psum_axis) if psum_axis else s
 
     if callable(diag):
         precond = diag
     else:
-        diag_a = 1.0 if diag is None else rd(diag)
+        diag_a = 1.0 if diag is None else diag
         precond = lambda r: diag_a * r  # noqa: E731
 
     if x0 is None:
@@ -116,11 +79,9 @@ def _solve_cg(
         x = x0
         r = b - A(x0)
 
-    ra = rd(r)
-    res0 = jnp.sqrt(dot(ra, ra))
-    za = precond(ra) if active is not None else precond(r)
-    d = wr(jnp.zeros_like(b), za)
-    rz = dot(ra, za)
+    res0 = jnp.sqrt(dot(r, r))
+    d = precond(r)
+    rz = dot(r, d)
 
     def cond(state):
         x, r, d, rz, it, res = state
@@ -129,17 +90,15 @@ def _solve_cg(
     def body(state):
         x, r, d, rz, it, res = state
         h = A(d)
-        da, ha = rd(d), rd(h)
-        dh = dot(da, ha)
+        dh = dot(d, h)
         alpha = jnp.where(dh != 0.0, rz / jnp.where(dh != 0.0, dh, 1.0), 0.0).astype(dt)
-        x = wr(x, rd(x) + alpha * da)
-        ra = rd(r) - alpha * ha
-        r = wr(r, ra)
-        za = precond(ra) if active is not None else precond(r)
-        rz_new = dot(ra, za)
+        x = x + alpha * d
+        r = r - alpha * h
+        z = precond(r)
+        rz_new = dot(r, z)
         beta = jnp.where(rz != 0.0, rz_new / jnp.where(rz != 0.0, rz, 1.0), 0.0).astype(dt)
-        d = wr(d, za + beta * da)
-        res = jnp.sqrt(dot(ra, ra)).astype(res.dtype)
+        d = z + beta * d
+        res = jnp.sqrt(dot(r, r)).astype(res.dtype)
         return (x, r, d, rz_new, it + 1, res)
 
     state = (x, r, d, rz, jnp.int32(0), res0.astype(dt))

@@ -16,18 +16,15 @@ centerpiece optimization, re-expressed for XLA. Per iteration exactly:
 Where the reference pays one 7-double D2H memcpy + ``MPI_Allreduce`` per
 iteration (``bp5/solver.h:488-494``), here every scalar lives on device
 inside the ``lax.while_loop``; under sharding the seven sums become a single
-fused ``psum`` over ICI.
+fused ``psum``.
 
 ``deferred_x_update=True`` implements the Kronbichler data-locality scheme
 (``OPTIMIZED_UPDATE``, ``bp5/solver.h:106-140,509-526``; cf. arXiv
 2205.08909): x is touched only every second iteration via the merged
-two-step formula. **Default False on XLA**: measured on the v5e dev chip
-(p=5, 200 fixed iterations, separable vmult), the parity ``lax.cond``
-phases break XLA's loop-body fusion and cost more than the skipped
-x-writes save — 3.1M DoFs: plain 9.13 / standard 8.59 / deferred 7.72
-GDoF/s; 12.5M: all within 2.5%. The scheme is kept (and parity-tested)
-because it is the reference's centerpiece trick and the tradeoff flips on
-hand-scheduled kernels.
+two-step formula. Default False: the parity ``lax.cond`` phases can break
+XLA's loop-body fusion and cost more than the skipped x-writes save; on
+the GPU the tradeoff is not measured yet. The scheme is kept (and
+parity-tested) because it is the reference's centerpiece trick.
 
     x += (a_j + a_{j-1}/b_{j-1}) d_j + (a_{j-1}/b_{j-1}) * diag * g_{j-1}
 
@@ -63,44 +60,13 @@ def solve_cg_merged(
     diag: Optional[jnp.ndarray] = None,
     x0: Optional[jnp.ndarray] = None,
     deferred_x_update: bool = False,
-    dot_dtype=None,
     dot_weight: Optional[jnp.ndarray] = None,
     psum_axis: Optional[str] = None,
-    active=None,
-    A_donate=None,
-    dots_active=None,
 ):
     """Solve A x = b. Returns ``(x, info)``; see ``solve_cg`` for the diag
     convention, the distributed ``dot_weight``/``psum_axis`` knobs, and the
     eager-call jit cache (``solvers._dispatch``) both entry points share.
-    The whole solve is one jittable expression.
-
-    ``active``: optional ``(shape3, (sl_z, sl_y, sl_x))`` — e.g.
-    ``StencilLayout.active_spec()`` — restricting every elementwise CG
-    update and reduction to the real sub-box of a kernel-owned padded
-    layout. The dead padding of such layouts is zero by invariant (it
-    contributes nothing to any dot product and is a fixed point of every
-    update), so skipping it is exact and cuts the solver's HBM traffic by
-    the padding ratio (1.6x at the BP5 cycle-33 layout). Requires b/x0
-    zero outside the box and A preserving that invariant. CAVEAT: on the
-    v5e dev chip XLA materializes a copy per sliced dynamic-update-slice
-    in the loop body, which more than eats the traffic saving
-    (scripts/exp_active_cg.py: 4.09 full / 2.66 sliced GDoF/s at cycle
-    33) — measure before enabling.
-
-    ``dots_active``: like ``active`` but applied ONLY to the seven-dot
-    reduction — pure gathers, no dynamic-update-slice copies, so it
-    actually pays on the dev chip (the dots pass shrinks by the padding
-    ratio). Same zero-padding requirements.
-
-    ``A_donate``: optional ``(d, out_buf) -> h`` variant of the operator
-    taking a DONATED output buffer (``vmult_free``); the loop then
-    carries a recycled h buffer and the operator apply needs no
-    strip/face epilogue. REQUIRES b (and x0) zero on the constrained set
-    — then every CG vector stays zero there and the identity rows are
-    inert (every assembled rhs satisfies this; the reference's drivers
-    interpolate zero boundary values the same way,
-    ``bp5/step-64.cu:351-358``)."""
+    The whole solve is one jittable expression."""
     return dispatch(
         _solve_cg_merged,
         A,
@@ -108,13 +74,9 @@ def solve_cg_merged(
         control,
         diag,
         x0,
-        dot_dtype,
         dot_weight,
         psum_axis,
-        active,
         deferred_x_update=deferred_x_update,
-        A_donate=A_donate,
-        dots_active=dots_active,
     )
 
 
@@ -124,40 +86,11 @@ def _solve_cg_merged(
     control,
     diag=None,
     x0=None,
-    dot_dtype=None,
     dot_weight=None,
     psum_axis=None,
-    active=None,
     deferred_x_update=False,
-    A_donate=None,
-    dots_active=None,
 ):
     dt = b.dtype
-    dd = dot_dtype or dt
-
-    if active is None:
-        rd = lambda v: v  # noqa: E731
-
-        def wr(v, new):
-            return new
-
-    else:
-        shape3, sl = active
-
-        def rd(v):
-            return v.reshape(shape3)[sl]
-
-        def wr(v, new):
-            return v.reshape(shape3).at[sl].set(new).reshape(v.shape)
-
-    if dots_active is None:
-        rds = rd
-    else:
-        assert active is None, "active and dots_active are exclusive"
-        dshape3, dsl = dots_active
-
-        def rds(v):
-            return v.reshape(dshape3)[dsl]
 
     def _reduce(*scalars):
         if psum_axis:
@@ -167,7 +100,7 @@ def _solve_cg_merged(
     # diag == None is the reference's identity DiagonalMatrix; a python
     # scalar broadcasts through every use below WITHOUT materializing (or
     # streaming) an all-ones vector
-    diag_a = 1.0 if diag is None else rd(diag)
+    diag_a = 1.0 if diag is None else diag
 
     # init (bp5/solver.h:373-383): g = A x - b, short-circuit for x0 == None
     if x0 is None:
@@ -177,38 +110,34 @@ def _solve_cg_merged(
         x = x0
         g = A(x0) - b
 
-    diag_s = 1.0 if diag is None else rds(diag)
-
     def dots7(da, ga, ha):
-        """One fused pass over the ACTIVE views: the update_b seven-way
+        """One fused pass: the update_b seven-way
         reduction. Elementwise products share the four input reads; XLA
         fuses the sibling sums, and under sharding the stacked psum is ONE
         7-scalar all-reduce — the reference's single
         ``MPI_Allreduce(…, 7, …)``."""
-        w = 1.0 if dot_weight is None else rds(dot_weight)
-        dg = (diag_s * ha).astype(dd)
-        gd = (ga * w).astype(dd)
-        hd = ha.astype(dd)
+        w = 1.0 if dot_weight is None else dot_weight
+        dg = diag_a * ha
+        gd = ga * w
         s = _reduce(
-            jnp.sum((da * w).astype(dd) * hd),  # 0: d.h     (p.v)
-            jnp.sum((ha * w).astype(dd) * hd),  # 1: h.h     (v.v)
-            jnp.sum(gd * hd),                   # 2: g.h     (r.v)
-            jnp.sum(gd * ga.astype(dd)),        # 3: g.g     (r.r)
-            jnp.sum(gd * dg),                   # 4: g.Mh    (r.diag v)
-            jnp.sum((ha * w).astype(dd) * dg),  # 5: h.Mh    (v.diag v)
-            jnp.sum(gd * (diag_s * ga).astype(dd)),  # 6: g.Mg (r.diag r)
+            jnp.sum(da * w * ha),        # 0: d.h     (p.v)
+            jnp.sum(ha * w * ha),        # 1: h.h     (v.v)
+            jnp.sum(gd * ha),            # 2: g.h     (r.v)
+            jnp.sum(gd * ga),            # 3: g.g     (r.r)
+            jnp.sum(gd * dg),            # 4: g.Mh    (r.diag v)
+            jnp.sum(ha * w * dg),        # 5: h.Mh    (v.diag v)
+            jnp.sum(gd * (diag_a * ga)), # 6: g.Mg    (r.diag r)
         )
         return s[0], s[1], s[2], s[3], s[4], s[5], s[6]
 
-    w0 = 1.0 if dot_weight is None else rds(dot_weight)
-    ga0 = rds(g)
-    res0_sq = jnp.sum((ga0 * w0).astype(dd) * ga0.astype(dd))
+    w0 = 1.0 if dot_weight is None else dot_weight
+    res0_sq = jnp.sum(g * w0 * g)
     if psum_axis:
         res0_sq = jax.lax.psum(res0_sq, psum_axis)
     res0 = jnp.sqrt(res0_sq)
-    d = wr(jnp.zeros_like(b), -diag_a * rd(g))  # update_a0 (bp5/solver.h:48-72)
+    d = -diag_a * g  # update_a0 (bp5/solver.h:48-72)
 
-    zero = jnp.zeros((), dtype=dd)
+    zero = jnp.zeros((), dtype=dt)
 
     def cond(state):
         return control.continue_pred(state["it"], state["res"], res0)
@@ -218,12 +147,8 @@ def _solve_cg_merged(
         alpha_prev, beta_prev = state["alpha"], state["beta"]
         it = state["it"] + 1
 
-        h = A(d) if A_donate is None else A_donate(d, state["hbuf"])
-        da, ga, ha = rd(d), rd(g), rd(h)
-        if dots_active is None:
-            s0, s1, s2, s3, s4, s5, s6 = dots7(da, ga, ha)
-        else:
-            s0, s1, s2, s3, s4, s5, s6 = dots7(rds(d), rds(g), rds(h))
+        h = A(d)
+        s0, s1, s2, s3, s4, s5, s6 = dots7(d, g, h)
         # safe divides: at exact convergence (g == 0) the reference would
         # trip ExcDivideByZero (bp5/solver.h:501); here alpha/beta collapse
         # to 0, the residual recurrence yields |g| = 0 and the loop exits.
@@ -243,21 +168,20 @@ def _solve_cg_merged(
 
             def x_two_step(x):
                 # x += (a + a_prev/b_prev) d + (a_prev/b_prev) diag g_old
-                return wr(x, rd(x) + (a + ratio) * da + ratio * (diag_a * ga))
+                return x + (a + ratio) * d + ratio * (diag_a * g)
 
             def x_odd(x):
                 # complete through it on early exit (update_c epilogue)
                 return jax.lax.cond(
-                    will_stop, lambda x: wr(x, rd(x) + a * da), lambda x: x, x
+                    will_stop, lambda x: x + a * d, lambda x: x, x
                 )
 
             x = jax.lax.cond(it % 2 == 0, x_two_step, x_odd, x)
         else:
-            x = wr(x, rd(x) + a * da)  # update_a<true> (bp5/solver.h:74-104)
+            x = x + a * d  # update_a<true> (bp5/solver.h:74-104)
 
-        ga_new = ga + a * ha
-        g_new = wr(g, ga_new)
-        d_new = wr(d, beta.astype(dt) * da - diag_a * ga_new)
+        g_new = g + a * h
+        d_new = beta.astype(dt) * d - diag_a * g_new
 
         out = {
             "x": x,
@@ -268,9 +192,6 @@ def _solve_cg_merged(
             "it": it,
             "res": res,
         }
-        if A_donate is not None:
-            # h is dead after the update: recycle it as the next donation
-            out["hbuf"] = h
         return out
 
     state = {
@@ -282,8 +203,6 @@ def _solve_cg_merged(
         "it": jnp.int32(0),
         "res": res0,
     }
-    if A_donate is not None:
-        state["hbuf"] = jnp.zeros_like(b)
     state = jax.lax.while_loop(cond, body, state)
     return state["x"], {
         "n_iterations": state["it"],

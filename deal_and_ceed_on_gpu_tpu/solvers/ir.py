@@ -1,13 +1,12 @@
 """Mixed-precision iterative refinement: f32 CG inner solves, f64 true
 residuals.
 
-TPU f64 is emulated and slow, while f32 CG stagnates near a true relative
-residual of ~1e-4 (the recurrence residual free-falls below the true one;
-see RESULTS.md). Classical iterative refinement gets the best of both —
+f32 CG stagnates near a true relative residual of ~1e-4 (the recurrence
+residual free-falls below the true one), while f64 moves twice the bytes.
+Classical iterative refinement gets the best of both where f64 is slow —
 an extension over the reference, whose double-precision solver never
-faces the tradeoff (SURVEY.md "hard parts": *f64 on TPU is emulated and
-slow; meeting the 1e-10 tolerance while hitting GDoF/s may need f32
-compute + f64 reductions*):
+faces the tradeoff (SURVEY.md "hard parts"). Whether it beats native f64
+on the GPU is not measured yet:
 
     repeat:  r = b - A x          (f64 operator, true residual)
              solve A e ~= r       (f32 merged CG, loose reduction)

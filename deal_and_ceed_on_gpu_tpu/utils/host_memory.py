@@ -37,13 +37,13 @@ def tune_host_allocator(
     heap (peak-RSS-sized heap stays resident for the process lifetime).
     That is the right trade on slow-fault virtualized hosts where this
     framework owns the process, but embedding applications can opt out by
-    setting ``DCG_TPU_MALLOPT=0`` before import."""
+    setting ``DCG_MALLOPT=0`` before import."""
     global _done
     if _done:
         return True
     import os
 
-    if os.environ.get("DCG_TPU_MALLOPT", "1") == "0":
+    if os.environ.get("DCG_MALLOPT", "1") == "0":
         return False
     try:
         import ctypes

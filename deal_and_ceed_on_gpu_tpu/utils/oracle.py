@@ -4,7 +4,7 @@ The reference verifies against CPU deal.II runs by eye (SURVEY.md section 4);
 this module formalizes that: assemble the *actual* global sparse matrix for
 tiny meshes with exactly the same quadrature the matrix-free operator uses,
 so operator outputs must agree to roundoff. Everything here is test
-infrastructure — never on the TPU hot path.
+infrastructure — never on the device hot path.
 """
 
 from __future__ import annotations

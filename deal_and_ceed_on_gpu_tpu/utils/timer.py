@@ -1,5 +1,5 @@
 """Wall-clock timing with device fencing (reference ``Timer`` +
-``cudaDeviceSynchronize``, ``bp5/step-64.cu:442-457``): on TPU the fence is
+``cudaDeviceSynchronize``, ``bp5/step-64.cu:442-457``): here the fence is
 ``jax.block_until_ready`` on the result."""
 
 from __future__ import annotations

@@ -1,13 +1,13 @@
 #!/usr/bin/env python
-"""f32x2 extended-precision applies (ops/df32.py) on the real chip.
+"""f32x2 extended-precision applies (ops/df32.py) on the device.
 
 Three measurements per size (BP5 p=5 GLL config, reference
 ``bp5/step-64.cu:206`` is f64 end-to-end):
-  1. on-chip accuracy vs the f64 oracle under jit (the 1e-12 bar —
-     asserts XLA:TPU preserves the error-free transformations),
+  1. accuracy vs the f64 oracle under jit (the 1e-12 bar — asserts the
+     backend's codegen preserves the error-free transformations),
   2. chained-apply throughput of the df32 path,
-  3. chained-apply throughput of emulated-f64 separable (the only other
-     f64-grade apply on TPU) and of plain-f32 separable for scale.
+  3. chained-apply throughput of f64 separable and of plain-f32
+     separable for scale.
 
     python scripts/bench_f32x2.py [cycles...]   # default 26 29 33
 """

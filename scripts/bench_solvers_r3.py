@@ -1,8 +1,8 @@
-"""Round-3 refresh of the RESULTS.md time-to-1e-10 tables: uniform
+"""Time-to-1e-10 tables: uniform
 ~1M-DoF cube and the sine-mapped 912k-DoF mesh, all solver paths, with
 setup and warm-solve times reported separately (the solver jit cache
 makes call #2 the steady-state number; call #1 adds the one-time XLA
-compile). Run from the repo root on the dev chip."""
+compile). Run from the repo root on the GPU."""
 import sys
 import time
 

@@ -1,6 +1,9 @@
-"""Break down the padded-layout merged-CG iteration cost at one BP5 size:
-raw stencil kernel vs constrained vmult (epilogue cost) vs the XLA-side
-dots + update passes, to target the next solver-path optimization."""
+"""Break down the merged-CG iteration cost at one BP5 size (p=5 GLL,
+f32): the stencil-kernel vmult vs the XLA-side dots + update passes, to
+target the next solver-path optimization. Needs a GPU.
+
+    python scripts/profile_cg_iteration.py [cycle]   # default 33
+"""
 
 import sys
 import time
@@ -17,7 +20,6 @@ from deal_and_ceed_on_gpu_tpu import (
     solve_cg_merged,
 )
 from deal_and_ceed_on_gpu_tpu.models import PoissonOperator
-from deal_and_ceed_on_gpu_tpu.ops.pallas_stencil import StencilLayout
 from deal_and_ceed_on_gpu_tpu.utils import enable_compilation_cache
 
 enable_compilation_cache()
@@ -27,15 +29,13 @@ N = 200
 mesh = BrickMesh.bp5_cycle(CYCLE)
 space = FESpace.create(mesh, 5, rule="gauss_lobatto", dtype=jnp.float32)
 n = space.n_dofs
-opts = StencilLayout.auto_opts(mesh, 5)
-op = PoissonOperator(space, backend="pallas", pallas_opts=opts)
-L = op.layout
-print(f"cycle {CYCLE}: n={n} padded={L.n} ratio={L.n/n:.3f} opts={opts}")
+op = PoissonOperator(space, backend="stencil")
+print(f"cycle {CYCLE}: n={n}")
 
 rng = np.random.default_rng(0)
-u = L.pad_flat(jnp.asarray(rng.standard_normal(n), jnp.float32))
+u = jnp.asarray(rng.standard_normal(n), jnp.float32)
 u = u / jnp.linalg.norm(u)
-v = jax.block_until_ready(jax.jit(op.vmult_padded)(u))
+v = jax.block_until_ready(jax.jit(op.vmult)(u))
 op.fold_scale(1.0 / max(float(jnp.linalg.norm(v)), 1.0))
 
 
@@ -47,14 +47,13 @@ def chain(fn, label, passes_guess):
         t0 = time.perf_counter()
         jax.block_until_ready(f(u))
         best = min(best, (time.perf_counter() - t0) / N)
-    gbps = passes_guess * L.n * 4 / best / 1e9
+    gbps = passes_guess * n * 4 / best / 1e9
     print(f"{label:34s} {best*1e3:7.3f} ms/iter  ({n/best/1e9:5.2f} GDoF/s,"
           f" ~{gbps:5.0f} GB/s at {passes_guess} streams)")
     return best
 
 
-t_raw = chain(op._stencil, "raw stencil kernel", 2.33)
-t_vm = chain(op.vmult_padded, "constrained vmult (kernel+epilog)", 2.33)
+t_vm = chain(op.vmult, "stencil vmult", 2.0)
 
 # XLA-side passes in isolation (identity diag, like the benchmark solve)
 g0 = u * 1.0003
@@ -86,7 +85,7 @@ t_upd = chain(update_pass, "update pass (4R + 3W)", 7.0)
 
 # whole merged-CG iteration
 control = IterationNumberControl(150, 0.0)
-solver = jax.jit(lambda b: solve_cg_merged(op.vmult_padded, b, control)[0])
+solver = jax.jit(lambda b: solve_cg_merged(op.vmult, b, control)[0])
 jax.block_until_ready(solver(u))
 best = 1e9
 for _ in range(3):
@@ -97,4 +96,3 @@ print(f"{'merged-CG full iteration':34s} {best*1e3:7.3f} ms/iter  "
       f"({n/best/1e9:5.2f} GDoF/s)")
 print(f"sum of parts (vmult+dots+update)   "
       f"{(t_vm+t_dots+t_upd)*1e3:7.3f} ms/iter")
-print(f"epilogue share (vmult - raw)       {(t_vm-t_raw)*1e3:7.3f} ms")

@@ -224,34 +224,7 @@ def test_refined_everything_matches_uniform():
     )
 
 
-def test_adaptive_pallas_kernel_matches_xla():
-    """The device cell-apply (GeneralCellKernel, diag3 mode on the active
-    cells) reproduces the XLA sum-factorized adaptive vmult exactly —
-    Poisson AND Helmholtz (streamed a(x)*JxW value table).
-
-    COVERAGE NOTE (ADVICE r4): this runs interpret=True (f64, CPU suite);
-    the Mosaic f32 compile of the adaptive diag3+table shapes is covered
-    on silicon by ``scripts/bench_adaptive_tpu.py``, which compiles both
-    backends on the chip and parity-checks them (RESULTS.md adaptive-TPU
-    table)."""
-    from deal_and_ceed_on_gpu_tpu.adaptive import AdaptiveHelmholtzOperator
-
-    space = _space((2, 2, 2), (0, 3), p=3)
-    rng = np.random.default_rng(5)
-    u = jnp.asarray(rng.standard_normal(space.n_dofs))
-    for cls in (AdaptivePoissonOperator, AdaptiveHelmholtzOperator):
-        ref = cls(space, backend="xla")
-        dev = cls(space, backend="pallas",
-                  pallas_opts=dict(interpret=True))
-        assert dev.backend == "pallas"
-        want = np.asarray(ref.vmult(u))
-        got = np.asarray(dev.vmult(u))
-        scale = np.abs(want).max()
-        np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * scale)
-
-
-def test_adaptive_backend_auto_is_xla_off_tpu():
-    """auto resolves to the einsum path on CPU (and would pick the kernel
-    on TPU for f32 spaces); f64 never routes to Mosaic."""
+def test_adaptive_backend_auto_is_xla():
+    """auto resolves to the einsum path, the only adaptive backend."""
     space = _space((2, 2, 2), (0,), p=2)
     assert AdaptivePoissonOperator(space, backend="auto").backend == "xla"

@@ -57,66 +57,6 @@ def test_vector_cg_solves():
     np.testing.assert_allclose(np.asarray(x[1]), 2 * np.asarray(x1), rtol=1e-8)
 
 
-def test_vector_pallas_padded_solve():
-    """BP6 (vector Poisson, GLL collocation) on the fused stencil kernel:
-    component-unrolled kernel applies in the padded layout, whole solve
-    padded, matches the separable vector solve."""
-    from deal_and_ceed_on_gpu_tpu.models.vector import VectorOperator
-
-    mesh = BrickMesh((3, 3, 4), upper=(1.0, 0.9, 1.2))
-    p = 2
-    space = FESpace.create(mesh, p, rule="gauss_lobatto", dtype=jnp.float64)
-    sop = PoissonOperator(space, backend="pallas")
-    sop._stencil.interpret = True
-    vop = VectorOperator(sop, 3)
-    ref = VectorOperator(PoissonOperator(space, backend="separable"), 3)
-
-    u = jnp.asarray(
-        np.random.default_rng(5).standard_normal((3, space.n_dofs))
-    )
-    np.testing.assert_allclose(
-        np.asarray(vop.vmult(u)), np.asarray(ref.vmult(u)),
-        rtol=1e-12, atol=1e-12,
-    )
-
-    b1 = assemble_rhs(space, 1.0)
-    b = jnp.stack([b1, 2.0 * b1, -b1])
-    control = SolverControl(300, 1e-10 * float(jnp.linalg.norm(b)))
-    xp, info = solve_cg_merged(vop.vmult_padded, vop.pad_flat(b), control)
-    x_ref, info_ref = solve_cg_merged(ref.vmult, b, control)
-    assert abs(int(info["n_iterations"]) - int(info_ref["n_iterations"])) <= 1
-    np.testing.assert_allclose(
-        np.asarray(vop.unpad_flat(xp)), np.asarray(x_ref),
-        rtol=1e-9, atol=1e-12,
-    )
-
-
-def test_vector_pallas_stacked_bf16_vmult():
-    """The stacked vector kernel composes with bf16 streaming."""
-    from deal_and_ceed_on_gpu_tpu.models.vector import VectorOperator
-
-    mesh = BrickMesh((2, 3, 4))
-    p = 3
-    space64 = FESpace.create(mesh, p, rule="gauss_lobatto", dtype=jnp.float64)
-    ref = VectorOperator(PoissonOperator(space64, backend="separable"), 3)
-    space32 = FESpace.create(mesh, p, rule="gauss_lobatto", dtype=jnp.float32)
-    sop = PoissonOperator(
-        space32, backend="pallas",
-        pallas_opts=dict(stream_dtype=jnp.bfloat16),
-    )
-    sop._stencil.interpret = True
-    vop = VectorOperator(sop, 3)
-    u = jnp.asarray(
-        np.random.default_rng(9).standard_normal((3, space64.n_dofs))
-    )
-    want = np.asarray(ref.vmult(u))
-    up = vop.pad_flat(jnp.asarray(u, jnp.float32))
-    assert up.dtype == jnp.bfloat16
-    got = np.asarray(vop.unpad_flat(vop.vmult_padded(up)), np.float64)
-    scale = np.abs(want).max()
-    assert np.abs(got - want).max() / scale < 3e-2
-
-
 @pytest.mark.parametrize(
     "make,kind,kw",
     [

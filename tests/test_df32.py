@@ -1,6 +1,6 @@
 """f32x2 extended-precision applies (ops/df32.py) vs the f64 oracle.
 
-The bar (VERDICT r4 missing #2): kernel-path vmult <= 1e-12 relative
+The bar: kernel-path vmult <= 1e-12 relative
 error against the f64 operator — the reference's precision
 (``bp5/step-64.cu:206``) without any f64 arithmetic in the apply.
 """

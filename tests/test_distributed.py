@@ -345,64 +345,3 @@ def test_dist_merged_cg_matches_single(n_shards):
     )
 
 
-def test_dist_pallas_general_matches_single():
-    """Distributed general-quadrature Pallas kernel (uniform mesh, Gauss
-    q=p+2 — the BP3 configuration) under shard_map: vmult and merged CG
-    match the single-device structured oracle. The general kernel's apply
-    is a plain cell loop, so it rides the standard halo_combine path;
-    dead padding elements only touch global-Dirichlet rows (masked)."""
-    from deal_and_ceed_on_gpu_tpu.parallel import (
-        BlockPartition,
-        DistOperator,
-        make_device_mesh,
-        make_dist_vmult,
-    )
-
-    p = 3
-    mesh = BrickMesh((2, 4, 4))
-    space = FESpace.create(mesh, p, n_q=p + 2, rule="gauss", dtype=jnp.float64)
-    op = PoissonOperator(space, backend="structured")
-    part = BlockPartition(mesh, p, pz=2, py=2)
-    dist_op = DistOperator(
-        part,
-        PoissonOperator,
-        dtype=jnp.float64,
-        backend="pallas_general",
-        rule="gauss",
-        n_q=p + 2,
-        pallas_opts={"interpret": True},
-    )
-
-    rng = np.random.default_rng(7)
-    u = rng.standard_normal(space.grid_shape)
-    want = np.asarray(op.vmult(jnp.asarray(u.reshape(-1)))).reshape(-1)
-    f = make_dist_vmult(dist_op, make_device_mesh(2, 2))
-    got = part.from_blocks(np.asarray(f(jnp.asarray(part.to_blocks(u)))))
-    np.testing.assert_allclose(got.reshape(-1), want, rtol=1e-12, atol=1e-11)
-
-    b = assemble_rhs(space, 1.0)
-    control = SolverControl(400, 1e-10)
-    x_single, info_single = solve_cg_merged(op.vmult, b, control)
-    b_stacked = jnp.asarray(part.to_blocks(np.asarray(b).reshape(space.grid_shape)))
-    x_stacked, info = solve_cg_merged_dist(
-        dist_op, b_stacked, control, mesh=make_device_mesh(2, 2)
-    )
-    assert int(info["n_iterations"]) == int(info_single["n_iterations"])
-    x = part.from_blocks(np.asarray(x_stacked))
-    np.testing.assert_allclose(
-        x.reshape(-1), np.asarray(x_single), rtol=4e-9, atol=1e-12
-    )
-
-
-def test_dist_pallas_general_rejects_mapped():
-    from deal_and_ceed_on_gpu_tpu import sine_map
-    from deal_and_ceed_on_gpu_tpu.parallel import BlockPartition, DistOperator
-
-    phi, jac = sine_map(0.04)
-    mesh = BrickMesh((2, 4, 4)).deform(phi, jac)
-    part = BlockPartition(mesh, 2, pz=2, py=2)
-    with pytest.raises(ValueError, match="uniform"):
-        DistOperator(
-            part, PoissonOperator, dtype=jnp.float64,
-            backend="pallas_general", rule="gauss",
-        )

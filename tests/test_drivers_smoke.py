@@ -1,6 +1,7 @@
 """Driver smoke tests (CPU): the CLIs stay runnable end-to-end."""
 
 import numpy as np
+import pytest
 
 from deal_and_ceed_on_gpu_tpu.drivers import bp, bp5
 
@@ -34,17 +35,35 @@ def test_bp_sweep_smoke():
     assert res[2]["pcg-merged"] > 0
 
 
-def test_bp5_pallas_backend_cycle_smoke():
-    """run_cycle with backend='pallas': whole solves in the padded layout
-    (interpret-mode kernel on CPU)."""
+def test_bp5_stencil_backend_cycle_smoke(stencil_interpret):
+    """run_cycle with backend='stencil': solves and the vmult chain on the
+    natural-grid kernel (interpreted on the CPU); the solve converges as
+    the separable run's does."""
     cfg = bp5.BP5Config(
         degree=2, n_iterations=12, n_repetitions=1, dtype="float64",
-        backend="pallas", modes=("pcg-standard", "pcg-merged", "vmult"),
-        pallas_opts=dict(interpret=True),
+        backend="stencil", modes=("pcg-standard", "pcg-merged", "vmult"),
     )
     res = bp5.run_cycle(8, cfg)
     assert res["pcg-merged"] > 0 and res["vmult"] > 0
     assert np.isfinite(res["l2_norm"])
+    ref = bp5.run_cycle(8, bp5.BP5Config(**{**cfg.__dict__, "backend": "separable"}))
+    assert res["true_rel_res"] < 1e-10 and ref["true_rel_res"] < 1e-10
+    np.testing.assert_allclose(res["l2_norm"], ref["l2_norm"], rtol=1e-12)
+
+
+def test_bp5_separable_sweep_modes_agree():
+    """``sep_mode`` reaches the operator: matmul and shifted-add sweeps
+    solve the same system to the same solution."""
+    cfg = bp5.BP5Config(
+        degree=3, n_iterations=12, n_repetitions=1, dtype="float64",
+        backend="separable", modes=("pcg-merged",),
+    )
+    ref = bp5.run_cycle(8, cfg)
+    res = bp5.run_cycle(8, bp5.BP5Config(**{**cfg.__dict__, "sep_mode": "stencil"}))
+    np.testing.assert_allclose(
+        np.asarray(res["solution"]), np.asarray(ref["solution"]), rtol=1e-11, atol=1e-13
+    )
+    np.testing.assert_allclose(res["l2_norm"], ref["l2_norm"], rtol=1e-12)
 
 
 def test_bp5_pcg_ir_mode_smoke():
@@ -58,28 +77,17 @@ def test_bp5_pcg_ir_mode_smoke():
     assert res["pcg-ir"] > 0 and np.isfinite(res["l2_norm"])
 
 
-def test_bp5_pallas_bf16_stream_cycle_smoke():
-    """run_cycle with backend='pallas' + stream_dtype=bfloat16: solves run
-    on bf16 HBM vectors with f32 dots (interpret-mode kernel on CPU)."""
-    cfg = bp5.BP5Config(
-        degree=2, n_iterations=12, n_repetitions=1, dtype="float32",
-        backend="pallas", modes=("pcg-merged", "vmult"),
-        pallas_opts=dict(interpret=True), stream_dtype="bfloat16",
-    )
-    res = bp5.run_cycle(8, cfg)
-    assert res["pcg-merged"] > 0 and res["vmult"] > 0
-    assert np.isfinite(res["l2_norm"])
-
-
-def test_bp5_pallas_general_backend_cycle_smoke():
-    """run_cycle with backend='pallas_general' (Gauss rule)."""
+@pytest.mark.parametrize("backend", ["separable", "structured"])
+def test_bp5_gauss_rule_cycle_smoke(backend):
+    """run_cycle with a Gauss rule (BP3-style) on the XLA backends that
+    serve it."""
     cfg = bp5.BP5Config(
         degree=2, n_iterations=12, n_repetitions=1, dtype="float64",
-        backend="pallas_general", rule="gauss",
-        modes=("pcg-merged",), pallas_opts=dict(interpret=True),
+        backend=backend, rule="gauss", modes=("pcg-merged",),
     )
     res = bp5.run_cycle(8, cfg)
     assert res["pcg-merged"] > 0 and np.isfinite(res["l2_norm"])
+    assert 0 < res["true_rel_res"] < 1
 
 
 def test_amr_driver_cli_smoke(tmp_path, monkeypatch, capsys):
@@ -107,9 +115,8 @@ def test_amr_driver_cli_smoke(tmp_path, monkeypatch, capsys):
 
 
 def test_bp5_auto_backend_resolves_by_size():
-    """backend='auto' encodes the measured solver-selection guidance:
-    small uniform GLL meshes -> separable; Gauss rule -> pallas_general
-    (interpret on CPU via pallas_opts)."""
+    """backend='auto' on the CPU: separable for GLL and Gauss rules on a
+    brick (the stencil kernel needs a GPU)."""
     cfg = bp5.BP5Config(
         degree=2, n_iterations=8, n_repetitions=1, dtype="float64",
         backend="auto", modes=("pcg-merged",),
@@ -119,33 +126,50 @@ def test_bp5_auto_backend_resolves_by_size():
     cfg = bp5.BP5Config(
         degree=2, n_iterations=8, n_repetitions=1, dtype="float64",
         backend="auto", rule="gauss", modes=("pcg-merged",),
-        pallas_opts=dict(interpret=True),
     )
     res = bp5.run_cycle(8, cfg)
     assert res["pcg-merged"] > 0 and np.isfinite(res["l2_norm"])
 
 
-def test_bp5_f64_pallas_falls_back_to_separable():
-    """--dtype float64 --backend pallas (no interpret): refused loudly by
-    default (Mosaic kernels are f32/bf16-only — VERDICT r3 item 4); with
-    the explicit --f64-fallback opt-in the f64 modes run the separable
-    path. Passing on the CPU test platform proves the fallback fired — a
-    real (non-interpret) pallas build here raises 'Only interpret mode is
-    supported on CPU'. The pcg-ir mode keeps its f32 pallas inner operator
-    without the opt-in (TPU-verified via the bp5 driver; its CPU smoke is
-    the interpret-mode pcg-ir test)."""
-    import pytest
+@pytest.mark.parametrize(
+    "mesh,rule,platform,want",
+    [
+        ("uniform", "gauss_lobatto", "gpu", "stencil"),
+        ("uniform", "gauss_lobatto", "cpu", "separable"),
+        ("graded", "gauss_lobatto", "gpu", "stencil"),
+        ("uniform", "gauss", "gpu", "separable"),
+        ("mapped", "gauss_lobatto", "gpu", "structured"),
+        ("mapped", "gauss", "cpu", "structured"),
+    ],
+)
+def test_bp5_auto_backend_choice(monkeypatch, mesh, rule, platform, want):
+    from deal_and_ceed_on_gpu_tpu import BrickMesh, sine_map
 
+    m = {
+        "uniform": BrickMesh((2, 2, 2)),
+        "graded": BrickMesh((2, 1, 1), widths=((0.3, 0.7), (1.0,), (1.0,))),
+        "mapped": BrickMesh((2, 2, 2)).deform(*sine_map(0.05)),
+    }[mesh]
+    monkeypatch.setattr(bp5.jax, "default_backend", lambda: platform)
+    assert bp5.auto_backend(m, rule) == want
+
+
+@pytest.mark.parametrize("backend", ["pallas", "pallas_general", "pallas_qgrid", "triton"])
+def test_bp5_removed_backend_raises(backend):
     cfg = bp5.BP5Config(
-        degree=2, n_iterations=12, n_repetitions=1, dtype="float64",
-        backend="pallas", modes=("pcg-merged", "vmult"),
+        degree=2, n_iterations=4, n_repetitions=1, dtype="float64",
+        backend=backend, modes=("pcg-merged",),
     )
-    with pytest.raises(SystemExit, match="pcg-ir"):
-        bp5.run_cycle(8, cfg)
+    with pytest.raises(ValueError, match="unknown backend"):
+        bp5.run_cycle(7, cfg)
+
+
+def test_bp5_f64_stencil_cycle_smoke(stencil_interpret):
+    """f64 runs on the kernel path itself: no refusal, no fallback."""
     cfg = bp5.BP5Config(
-        degree=2, n_iterations=12, n_repetitions=1, dtype="float64",
-        backend="pallas", modes=("pcg-merged", "vmult"), f64_fallback_ok=True,
+        degree=3, n_iterations=10, n_repetitions=1, dtype="float64",
+        backend="stencil", modes=("pcg-merged", "vmult"),
     )
-    res = bp5.run_cycle(8, cfg)
+    res = bp5.run_cycle(7, cfg)
     assert res["pcg-merged"] > 0 and res["vmult"] > 0
-    assert np.isfinite(res["l2_norm"])
+    assert res["solution"].dtype == np.float64

@@ -11,15 +11,13 @@ from deal_and_ceed_on_gpu_tpu.models import MassOperator, PoissonOperator
 from deal_and_ceed_on_gpu_tpu.models.vector import VectorOperator
 
 
-@pytest.mark.parametrize("backend", ["structured", "gather", "separable", "pallas"])
-def test_poisson_fold_scale(backend):
+@pytest.mark.parametrize("backend", ["structured", "gather", "separable", "stencil"])
+def test_poisson_fold_scale(stencil_interpret, backend):
     mesh = BrickMesh((2, 3, 2))
     space = FESpace.create(mesh, 2, rule="gauss_lobatto", dtype=jnp.float64)
     u = jnp.asarray(np.random.default_rng(0).standard_normal(space.n_dofs))
 
     op = PoissonOperator(space, backend=backend)
-    if backend == "pallas":
-        op._stencil.interpret = True
     before = np.asarray(op.vmult(u))
     op.fold_scale(0.25)
     after = np.asarray(op.vmult(u))

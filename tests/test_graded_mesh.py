@@ -1,5 +1,5 @@
 """Graded tensor-product meshes: the generality extension beyond uniform
-bricks that keeps every TPU fast path intact (Jacobians stay diagonal and
+bricks that keeps every fast path intact (Jacobians stay diagonal and
 every geometric factor separates per axis)."""
 
 import jax

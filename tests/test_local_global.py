@@ -54,7 +54,7 @@ def test_structured_matches_indexed(shape, p):
 
 
 def test_scatter_plan_matches_raw_scatter():
-    """The presorted segment-sum scatter (TPU fast path for
+    """The presorted segment-sum scatter (the sorted alternative for
     duplicate-index scatter-add) is bit-compatible with scatter_indexed
     up to summation order (exact for these magnitudes)."""
     import numpy as np
